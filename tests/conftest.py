@@ -87,3 +87,9 @@ def tiny_corpus(tiny_config):
     from tests.fixtures import build_tiny_corpus
 
     return build_tiny_corpus(tiny_config, n_questions=12, seed=0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's "
+        "CUDA kernels have no CPU mode); skipped without one")
