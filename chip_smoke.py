@@ -13,10 +13,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             and K2 21x per decode
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
+7. K4       lstm_layer_train forward + backward kernels vs their plain
+            versions at the encoders' shapes, f32 and bf16, with times
+8. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
+            on a synthetic in-memory corpus: K4 must launch 4x forward and
+            4x backward per step, K1/K2 none; one step timed and profiled
+            (step ms, samples/s, device idle share); then validate(), which
+            must launch K1 4x per batch and K2 22x per batch
+9. train card/cpu  one f32 train step of 4 samples on the card and on the
+            CPU (He-scaled VGGish convs and tone audio, so the audio
+            attention has gradients to compare): loss, every gradient leaf
+            and the updated parameters within stated tolerances
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-non-zero before printing any result. It imports nothing of JAX.
+non-zero before printing any result. It imports nothing of JAX (the port's
+trainer imports the JAX package's JAX-free config, dataset, metrics and
+pipelining modules, and the script checks at the end that no ``jax`` module
+was loaded).
 """
 
 from __future__ import annotations
@@ -25,17 +39,29 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import List
 
 import numpy as np
 import torch
 
 from mmqg_tpu_torch import decode as DEC
+from mmqg_tpu_torch.compat.from_jax import params_from_numpy
+from mmqg_tpu_torch.data.vocab import END_ID
+from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops import _build
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
 from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
+from mmqg_tpu_torch.ops.lstm_train import (lstm_layer_train,
+                                           lstm_train_bwd_plain,
+                                           lstm_train_fwd_plain)
+from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_leaves,
+                                  tree_map)
 from mmqg_tpu_torch.pipeline import QGPipeline
+from mmqg_tpu_torch.train import Trainer, batch_arrays, to_device
 
 SEED = 0
 # Comparisons on the card run in true f32: cuBLAS matmuls and cuDNN convs
@@ -62,7 +88,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 # ------------------------------------------------------------------- phases
@@ -329,14 +355,546 @@ def phase_card_vs_cpu(model) -> None:
 LOGIT_TOL = 1e-5
 
 
+# ----------------------------------------------------------------- K4 phase
+
+K4_SHAPES = (("text layer 0", 32, 283, 300, 512),
+             ("text layer 1", 32, 283, 512, 512),
+             ("video", 32, 101, 1000, 512))
+# max |kernel - plain| of the forward outputs (h and c sequences, hT, cT),
+# as K1: f32 differs only in summation order; bf16 rounds h before every
+# Wh product, so an order-induced rounding flip moves h by a bf16 ulp and
+# the recurrence carries it.
+K4_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# max |kernel - plain| / max |plain| of each gradient (dx, dWx, dWh, db,
+# dh0, dc0). f32: summation order over up to B*T = 9056 rows. bf16: da is
+# rounded to bf16 before every product, so a flip of that rounding moves
+# dh by a bf16 ulp of da . Wh^T and the reverse sweep carries it.
+K4_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+K4_NAMES = ("dwx", "dwh", "db", "dx", "dh0", "dc0")
+
+
+def _k4_case(rng, B, T, In, H, dtype, dev):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    wx = t(rng.randn(In, 4 * H) / np.sqrt(In))
+    wh = t(rng.randn(H, 4 * H) / np.sqrt(H))
+    b = t(rng.randn(4 * H) * 0.1)
+    xs = t(rng.randn(B, T, In))
+    h0, c0 = t(rng.randn(B, H) * 0.5), t(rng.randn(B, H) * 0.5)
+    cots = [t(rng.randn(B, T, H)), t(rng.randn(B, T, H)),
+            t(rng.randn(B, H)), t(rng.randn(B, H))]
+    leaves = [x.clone().requires_grad_(True) for x in (wx, wh, b, xs, h0, c0)]
+
+    def kernel():
+        for x in leaves:
+            x.grad = None
+        outs = lstm_layer_train(*leaves, dtype)
+        torch.autograd.backward(outs, cots)
+        return outs, [leaves[i].grad for i in (0, 1, 2, 3, 4, 5)]
+
+    def plain():
+        out, cseq, gates, hT, cT = lstm_train_fwd_plain(wx, wh, b, xs, h0,
+                                                        c0, dtype)
+        grads = lstm_train_bwd_plain(wx, wh, xs, h0, c0, out, cseq, gates,
+                                     *cots, dtype)
+        return (out, cseq, hT, cT), grads
+
+    with torch.no_grad():
+        ref_outs, ref_grads = plain()
+    outs, grads = kernel()
+    torch.cuda.synchronize()
+    fwd_err = max(max_abs(g, r) for g, r in zip(outs, ref_outs))
+    ref = dict(zip(K4_NAMES, ref_grads))
+    # the Function's gradients come in its input order: wx, wh, b, xs, h0, c0
+    got = dict(zip(("dwx", "dwh", "db", "dx", "dh0", "dc0"), grads))
+    grad_abs = max(max_abs(got[k], ref[k]) for k in K4_NAMES)
+    grad_rel = {k: max_abs(got[k], ref[k]) / float(ref[k].abs().max())
+                for k in K4_NAMES}
+
+    def kernel_fwd():
+        with torch.no_grad():
+            return lstm_layer_train(wx, wh, b, xs, h0, c0, dtype)
+
+    with torch.no_grad():
+        res = lstm_train_fwd_plain(wx, wh, b, xs, h0, c0, dtype)
+        times = {
+            "fwd": cuda_ms(kernel_fwd, iters=5, warmup=1),
+            "plain_fwd": cuda_ms(lambda: lstm_train_fwd_plain(
+                wx, wh, b, xs, h0, c0, dtype), iters=1, warmup=1),
+            "plain_bwd": cuda_ms(lambda: lstm_train_bwd_plain(
+                wx, wh, xs, h0, c0, res[0], res[1], res[2], *cots, dtype),
+                iters=1, warmup=1)}
+    # the backward alone: forward + backward less the forward
+    times["bwd"] = cuda_ms(kernel, iters=3, warmup=1) - times["fwd"]
+    return fwd_err, grad_abs, grad_rel, times
+
+
+def phase_k4(card: str) -> dict:
+    rng = np.random.RandomState(SEED + 3)
+    dev = torch.device("cuda")
+    summary, failures = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, T, In, H in K4_SHAPES:
+            fwd_err, grad_abs, grad_rel, ms = _k4_case(rng, B, T, In, H,
+                                                       dtype, dev)
+            worst = max(grad_rel.values())
+            log(f"K4 lstm_layer_train {name} B={B} T={T} In={In} H={H} "
+                f"{str(dtype)[6:]}: fwd max|d|={fwd_err:.3e} (tol "
+                f"{K4_FWD_TOL[dtype]:.0e}); grads max|d|={grad_abs:.3e}, "
+                f"max|d|/max|plain| "
+                + " ".join(f"{k}={v:.2e}" for k, v in grad_rel.items())
+                + f" (tol {K4_GRAD_TOL[dtype]:.0e}); kernel fwd "
+                f"{ms['fwd']:.2f} ms bwd {ms['bwd']:.2f} ms, plain fwd "
+                f"{ms['plain_fwd']:.2f} ms bwd {ms['plain_bwd']:.2f} ms "
+                f"[{card}]")
+            if not (fwd_err <= K4_FWD_TOL[dtype]
+                    and worst <= K4_GRAD_TOL[dtype]):
+                failures.append(f"{name} {dtype}")
+            if dtype == torch.bfloat16 and name == "text layer 0":
+                summary = {"fwd": {"max_abs_err": fwd_err, "ms": ms["fwd"],
+                                   "plain_ms": ms["plain_fwd"]},
+                           "bwd": {"max_abs_err": grad_abs, "ms": ms["bwd"],
+                                   "plain_ms": ms["plain_bwd"]}}
+    if failures:
+        raise AssertionError(f"K4 kernel and plain disagree: {failures}")
+    return summary
+
+
+# -------------------------------------------------------------- train phase
+
+@dataclass
+class SyntheticBatch:
+    """The fields of ``mmqg_tpu.data.dataset.Batch`` that training reads."""
+    context_ids: np.ndarray
+    context_len: np.ndarray
+    frames: np.ndarray
+    frames_len: np.ndarray
+    audio_pcm: np.ndarray
+    audio_len: np.ndarray
+    target_ids: np.ndarray
+    target_len: np.ndarray
+    valid: np.ndarray
+    questions: List[str]
+
+    @property
+    def size(self) -> int:
+        return int(self.valid.sum())
+
+
+def tones(rng, n: int, sr: int) -> np.ndarray:
+    """int16 PCM of ``n`` samples at ``sr``: a tone whose pitch (100-4000
+    Hz) and loudness change every second, over quiet noise. Unlike noise
+    alone, its VGGish examples differ from each other, so the audio
+    attention's scores get gradients well above f32 noise."""
+    sec = np.arange(n) // sr
+    k = int(sec[-1]) + 1
+    freq = rng.uniform(100.0, 4000.0, k)[sec]
+    amp = rng.uniform(1000.0, 12000.0, k)[sec]
+    x = (amp * np.sin(2 * np.pi * freq * np.arange(n) / sr)
+         + rng.standard_normal(n) * 300)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+class SyntheticCorpus:
+    """An in-memory stand-in for ``QGDataset``: ``n_batches`` batches of
+    lecture spans at the flagship's shapes -- transcripts of 40-283 words,
+    20-101 uint8 frames at frame_size, 8-32 s of int16 audio (``tones``),
+    questions of 4-20 words + <end> -- made from ``seed``. Batch i is the same on every
+    pass (``shuffle`` is ignored) and is made once, on first use, so a
+    timed epoch does not include making it."""
+
+    def __init__(self, mc, index_to_word, n_batches: int, batch_size: int,
+                 seed: int, max_audio_s: int = 32):
+        self.mc, self.index_to_word = mc, index_to_word
+        self.n_batches, self.batch_size, self.seed = n_batches, batch_size, seed
+        self.max_audio_s = max_audio_s
+        self._made = {}
+
+    def batches(self, batch_size: int, shuffle: bool = False, rng=None):
+        if batch_size != self.batch_size:
+            raise ValueError(f"batch size {batch_size}: the corpus holds "
+                             f"batches of {self.batch_size}")
+        for i in range(self.n_batches):
+            yield self.batch(i)
+
+    def batch(self, i: int) -> SyntheticBatch:
+        if i not in self._made:
+            self._made[i] = self._make(i)
+        return self._made[i]
+
+    def _make(self, i: int) -> SyntheticBatch:
+        mc, B = self.mc, self.batch_size
+        rng = np.random.default_rng(self.seed * 1000 + i)
+        Lc, av, fs, sr = (mc.context_max_length, mc.av_max_length,
+                          mc.frame_size, mc.sample_rate)
+        ctx_len = rng.integers(min(40, Lc), Lc + 1, B).astype(np.int32)
+        ctx = np.zeros((B, Lc), np.int32)
+        f_len = rng.integers(max(1, av // 5), av + 1, B).astype(np.int32)
+        frames = np.zeros((B, int(f_len.max()), fs, fs, 3), np.uint8)
+        a_len = rng.integers(8 * sr, self.max_audio_s * sr + 1,
+                             B).astype(np.int32)
+        pcm = np.zeros((B, int(a_len.max())), np.int16)
+        T = mc.target_steps
+        tgt_len = rng.integers(min(5, T), T + 1, B).astype(np.int32)
+        tgt = np.zeros((B, T), np.int32)
+        questions = []
+        for r in range(B):
+            ctx[r, :ctx_len[r]] = rng.integers(3, mc.n_vocab, ctx_len[r])
+            frames[r, :f_len[r]] = rng.integers(0, 256, frames.shape[1:],
+                                                np.uint8)[:f_len[r]]
+            pcm[r, :a_len[r]] = tones(rng, a_len[r], sr)
+            words = rng.integers(3, mc.n_vocab, tgt_len[r] - 1)
+            tgt[r, :tgt_len[r] - 1] = words
+            tgt[r, tgt_len[r] - 1] = END_ID
+            questions.append(" ".join(self.index_to_word[str(w)]
+                                      for w in words))
+        return SyntheticBatch(ctx, ctx_len, frames, f_len, pcm, a_len, tgt,
+                              tgt_len, np.ones(B, bool), questions)
+
+
+TRAIN_BATCHES = 4     # optimizer steps of the measured epoch (>= 3)
+
+
+def _launches():
+    return {"lstm_seq": lstm_seq.launches,
+            "trimodal_attention": trimodal_attention.launches,
+            "lstm_train_fwd": lstm_layer_train.fwd_launches,
+            "lstm_train_bwd": lstm_layer_train.bwd_launches}
+
+
+def _reset_launches() -> None:
+    lstm_seq.launches = trimodal_attention.launches = 0
+    lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
+
+
+def _device_busy_ms(fn):
+    """(wall ms, device-busy ms or None) of ``fn()`` under torch.profiler:
+    the union of the CUDA kernel and copy intervals. None when the
+    profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return wall, None, prof
+    busy, (s0, e0) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > e0:
+            busy += e0 - s0
+            s0, e0 = s, e
+        else:
+            e0 = max(e0, e)
+    busy += e0 - s0
+    return wall, busy / 1e3, prof
+
+
+def train_config(batch_size: int, **kw):
+    """The config fields the Trainer and make_optimizer read, with the JAX
+    package's Config defaults (Adam at lr 1e-4, no schedule or clip)."""
+    base = dict(lr=1e-4, optim="adam", grad_clip_norm=0.0, seed=SEED,
+                batch_size=batch_size, eval_batch_size=batch_size,
+                grad_accum_steps=1, train_av_bucketing=True,
+                train_av_bucket_granularity=8)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+def phase_train(card: str, model) -> dict:
+    mc, params, state, vocab, i2w = model
+    B = 32
+    t0 = time.perf_counter()
+    train_ds = SyntheticCorpus(mc, i2w, TRAIN_BATCHES, B, SEED + 4)
+    val_ds = SyntheticCorpus(mc, i2w, 1, B, SEED + 5)
+    trainer = Trainer(train_config(B), mc, params["embedding"]["table"],
+                      train_ds, val_ds, device="cuda", log_fn=log)
+    log(f"train: Trainer mode={mc.mode} hidden={mc.hidden_dim} vocab="
+        f"{mc.n_vocab} bf16 batch {B} on the card, Adam lr 1e-4, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trainer.run_epoch(0)                     # warm-up: cuDNN plans, caches
+    torch.cuda.synchronize()
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss = trainer.run_epoch(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = TRAIN_BATCHES
+    want = {"lstm_seq": 0, "trimodal_attention": 0,
+            "lstm_train_fwd": (mc.text_layers + 1) * steps,
+            "lstm_train_bwd": (mc.text_layers + 1) * steps}
+    log(f"train: run_epoch of {steps} steps launched {launches} (want "
+        f"{want}: {mc.text_layers} text layers + 1 video layer, forward and "
+        f"backward, per step); mean loss {loss:.4f}; {epoch_s * 1e3:.1f} ms "
+        f"({steps * B / epoch_s:.1f} samples/s; the batches were made in the "
+        f"warm-up epoch, their host-to-device copies are included) [{card}]")
+    if launches != want:
+        raise AssertionError(f"train launches {launches} != {want}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite training loss {loss}")
+
+    # one step alone: the step and AV caps Trainer.run_epoch uses, on a
+    # batch already on the card
+    host = batch_arrays(train_ds.batch(0))
+    caps = trainer.caps_for(host)
+    batch = to_device(host, "cuda")
+    ts = trainer.train_state
+
+    def one_step():
+        return trainer.train_step(ts, batch, trainer.generator, **caps)[1]
+
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = one_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    norm = float(metrics["grad_norm"])
+    if not (np.isfinite(norm) and np.isfinite(float(metrics["loss"]))):
+        raise AssertionError(f"non-finite step metrics {metrics}")
+    # the step's parts, each ending in a synchronise: forward (loss_fn,
+    # building the graph), forward + backward, and the optimizer update
+    # from the gradients that leaves (its new state is dropped)
+    params = qg_model.param_tree(ts.model)
+
+    def forward():
+        return qg_model.loss_fn(ts.model, mc, batch,
+                                generator=trainer.generator,
+                                dtype=torch.bfloat16, **caps)[0]
+
+    def forward_backward():
+        for p in tree_leaves(params):
+            p.grad = None
+        forward().backward()
+
+    def optimizer():
+        updates, _ = trainer.optimizer.update(
+            tree_map(lambda p: p.grad, params), ts.opt_state, params)
+        apply_updates(params, updates)
+
+    parts = {}
+    for part, fn in (("forward", forward), ("forward+backward",
+                                            forward_backward),
+                     ("optimizer", optimizer)):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        parts[part] = float(np.median(times))
+    for p in tree_leaves(params):
+        p.grad = None
+    log(f"train: step parts (median of 3 each): forward {parts['forward']:.1f}"
+        f" ms, backward {parts['forward+backward'] - parts['forward']:.1f} "
+        f"ms, optimizer {parts['optimizer']:.1f} ms [{card}]")
+    wall, busy, prof = _device_busy_ms(one_step)
+    idle = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
+    step = float(np.median(step_ms))
+    log(f"train: one step {step:.1f} ms (median of 3, batch on the card; "
+        f"{B / step * 1e3:.1f} samples/s), loss {float(metrics['loss']):.4f}"
+        f", grad norm {norm:.4f}; profiled step wall {wall:.1f} ms, device "
+        f"busy {'not measured' if busy is None else f'{busy:.1f} ms'}, "
+        f"idle share {idle} [{card}]")
+    if busy is not None:
+        top = prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=12)
+        for line in top.splitlines():
+            log(f"  {line}")
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    val = trainer.validate()
+    torch.cuda.synchronize()
+    val_launches = _launches()
+    val_want = {"lstm_seq": mc.text_layers + 1,
+                "trimodal_attention": mc.target_steps,
+                "lstm_train_fwd": 0, "lstm_train_bwd": 0}
+    log(f"train: validate() of {B} samples launched {val_launches} (want "
+        f"{val_want}), loss {val['loss']:.4f} bleu {val['bleu']:.4f}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+    if val_launches != val_want or not np.isfinite(val["loss"]):
+        raise AssertionError(f"validate launches {val_launches} != "
+                             f"{val_want} or non-finite loss")
+    return launches
+
+
+# f32 train step, card vs CPU (SGD, so the update is linear in the
+# gradient): the loss within 1e-5 relative; the updated parameters within
+# SGD_LR times the gradient band of the largest leaf; every gradient leaf
+# within 1e-4 of its max |CPU| (a leaf whose CPU gradient is exactly zero
+# must be zero on the card too), except the leaves of the two ReLU conv
+# towers (CONV_TOWERS), which are held to 5e-2: across two f32
+# implementations their gradients mean no more. A rounding difference at a
+# ReLU kink of the VGGish fc layers moves a leaf by one audio example's
+# share (1/32 here; one flipped gate read 2.9e-2 on an H100), and the video
+# convs' weight gradients are sums over ~10^6 positions that cancel
+# against batchnorm's zero-mean cotangent, so the CPU alone moves them by
+# up to 3.7e-3 between 1 and 8 threads. The phase prints both witnesses:
+# the flipped fc gates, and the CPU's own spread over thread counts.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TOWER_GRAD_RTOL = 1e-5, 1e-4, 5e-2
+CONV_TOWERS = ("/audio_enc/", "/video_enc/convs/", "/video_enc/bns/")
+SGD_LR = 1e-2
+
+
+def _train_step_on(device, model_np, mc, host, caps):
+    """(loss, gradients, SGD-updated parameters, the VGGish fc layers'
+    ReLU gates) of one f32 train step on ``device``, on the CPU."""
+    params, state = model_np
+    model = params_from_numpy(params, state, device, trainable=True)
+    opt = make_optimizer(train_config(4, optim="sgd", lr=SGD_LR))
+    tree = qg_model.param_tree(model)
+    opt_state = opt.init(tree)
+    gates = {}
+    hooks = [getattr(model.audio_enc, k).register_forward_hook(
+        lambda mod, inp, out, k=k: gates.__setitem__(k, (out > 0).cpu()))
+        for k in ("fc1", "fc2", "fc3")]
+    obj, _ = qg_model.loss_fn(model, mc, to_device(host, device),
+                              dtype=torch.float32, **caps)
+    for h in hooks:
+        h.remove()
+    obj.backward()
+    grads = tree_map(lambda p: p.grad, tree)
+    grads_cpu = tree_map(lambda g: g.detach().cpu(), grads)
+    updates, _ = opt.update(grads, opt_state, tree)
+    apply_updates(tree, updates)
+    return (float(obj.detach()), grads_cpu,
+            tree_map(lambda p: p.detach().cpu(), tree), gates)
+
+
+def _grad_rel(got, ref, names):
+    """{leaf: (max |d| / max |ref|, max |ref|)}; a zero leaf of ``ref``
+    reads 0 if ``got`` is zero there too, else inf."""
+    rel = {}
+    for name, a, b in zip(names, tree_leaves(got), tree_leaves(ref)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel[name] = (err / scale if scale > 0 else
+                     (0.0 if err == 0 else float("inf")), scale)
+    return rel
+
+
+def _in_tower(name: str) -> bool:
+    return name.startswith(CONV_TOWERS)
+
+
+def compare_train_steps(got, ref, names):
+    """(report lines, failed) for two ``_train_step_on`` results: ``got``
+    held to ``ref`` within the TRAIN_* and TOWER_* tolerances."""
+    (l_got, g_got, p_got, z_got), (l_ref, g_ref, p_ref, z_ref) = got, ref
+    loss_rel = abs(l_got - l_ref) / abs(l_ref)
+    rel = _grad_rel(g_got, g_ref, names)
+    bad = [n for n, (r, _) in rel.items()
+           if r > (TOWER_GRAD_RTOL if _in_tower(n) else TRAIN_GRAD_RTOL)]
+    smooth = [n for n in names if not _in_tower(n)]
+    tower = [n for n in names if _in_tower(n)]
+    worst = max(smooth, key=lambda n: rel[n][0])
+    worst_tower = max(tower, key=lambda n: rel[n][0])
+    max_grad = max(scale for _, scale in rel.values())
+    param_atol = SGD_LR * TRAIN_GRAD_RTOL * max_grad
+    worst_param = max(float((a - b).abs().max())
+                      for a, b in zip(tree_leaves(p_got), tree_leaves(p_ref)))
+    audio = [n for n in names if n.startswith("/decoder/attn/")
+             and "audio" in n]
+    flips = {k: int((z_got[k] != z_ref[k]).sum()) for k in sorted(z_ref)}
+    lines = [
+        f"loss {l_got:.6f} vs {l_ref:.6f} rel {loss_rel:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL:.0e}); worst gradient leaf {worst} "
+        f"{rel[worst][0]:.2e} of its max (tol {TRAIN_GRAD_RTOL:.0e}, every "
+        f"leaf outside the conv towers); conv towers' worst {worst_tower} "
+        f"{rel[worst_tower][0]:.2e} (tol {TOWER_GRAD_RTOL:.0e}); params "
+        f"max|d| {worst_param:.2e} (tol {param_atol:.1e})",
+        "audio attention leaves: " + ", ".join(
+            f"{n} {rel[n][0]:.2e} of its max {rel[n][1]:.2e}" for n in audio),
+        "VGGish fc ReLU gates that differ: " + ", ".join(
+            f"{k} {v} of {z_ref[k].numel()}" for k, v in flips.items())]
+    if bad:
+        lines.append("gradient leaves out of tolerance: " + ", ".join(bad))
+    failed = bool(loss_rel > TRAIN_LOSS_RTOL or bad
+                  or worst_param > param_atol)
+    return lines, failed
+
+
+def he_vggish(params):
+    """``params`` with the VGGish conv weights scaled by sqrt(6), from the
+    torch-default uniform init (variance 1 / (3 fan_in)) to He's 2 / fan_in.
+    With the default init six ReLU convs shrink the signal ~6^6-fold, the fc
+    biases swamp it and every audio example embeds alike, so the audio
+    attention's gradients sit at f32 noise (~1e-8) and check nothing."""
+    audio = dict(params["audio_enc"], convs=[
+        {"w": (c["w"] * np.sqrt(6.0)).astype(np.float32), "b": c["b"]}
+        for c in params["audio_enc"]["convs"]])
+    return dict(params, audio_enc=audio)
+
+
+def phase_train_card_vs_cpu(model) -> None:
+    mc, params, state, vocab, i2w = model
+    params = he_vggish(params)
+    corpus = SyntheticCorpus(mc, i2w, 1, 4, SEED + 6, max_audio_s=8)
+    host = batch_arrays(corpus.batch(0))
+    host["context_len"] = np.minimum(host["context_len"], 48)
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, host["frames_len"]))
+    out = {d: _train_step_on(d, (params, state), mc, host, caps)
+           for d in ("cuda", "cpu")}
+    names = list(_leaf_names(qg_model.param_tree(params_from_numpy(
+        params, state))))
+    lines, failed = compare_train_steps(out["cuda"], out["cpu"], names)
+    log(f"train card vs cpu (f32, 4 samples, one SGD step lr {SGD_LR}): "
+        + lines[0])
+    for line in lines[1:]:
+        log(f"  {line}")
+    # the towers' witness: the same CPU step with one thread, whose sums
+    # run in other orders
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        alone = _train_step_on("cpu", (params, state), mc, host, caps)
+    finally:
+        torch.set_num_threads(threads)
+    rel = _grad_rel(alone[1], out["cpu"][1], names)
+    spread = max((n for n in names if _in_tower(n)), key=lambda n: rel[n][0])
+    log(f"  cpu 1 thread vs {threads} threads: conv towers' worst {spread} "
+        f"{rel[spread][0]:.2e} of its max; elsewhere "
+        f"{max(r for n, (r, _) in rel.items() if not _in_tower(n)):.2e}")
+    if failed:
+        raise AssertionError("training on the card and on the CPU disagree")
+
+
+def _leaf_names(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_names(v, f"{path}/{i}")
+    else:
+        yield path
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
     k1 = phase_k1(dev["card"])
     k2 = phase_k2(dev["card"])
+    k4 = phase_k4(dev["card"])
     model = flagship()
     launches = phase_main(dev["card"], model)
     phase_card_vs_cpu(model)
+    train_launches = phase_train(dev["card"], model)
+    phase_train_card_vs_cpu(model)
+    if "jax" in sys.modules:
+        raise AssertionError("a jax module was imported")
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
@@ -345,7 +903,15 @@ def main() -> None:
         {"name": "trimodal_attention", "route": "cuda",
          "source": "mmqg_tpu_torch/csrc/trimodal_attention.cu",
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
-         "launches": launches["trimodal_attention"], **k2}]
+         "launches": launches["trimodal_attention"], **k2},
+        {"name": "lstm_train_fwd", "route": "cuda",
+         "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
+         "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:147",
+         "launches": train_launches["lstm_train_fwd"], **k4["fwd"]},
+        {"name": "lstm_train_bwd", "route": "cuda",
+         "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
+         "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:209",
+         "launches": train_launches["lstm_train_bwd"], **k4["bwd"]}]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -1,5 +1,5 @@
-"""Read the JAX package's msgpack checkpoints without flax or JAX
-(``mmqg_tpu/checkpoint.py:load_checkpoint``, msgpack backend).
+"""Read and write the JAX package's msgpack checkpoints without flax or JAX
+(``mmqg_tpu/checkpoint.py``, msgpack backend).
 
 ``<ckpt_dir>/<alias>.msgpack`` is flax's ``msgpack_serialize`` of
 ``to_state_dict(train_state)``:
@@ -14,7 +14,12 @@
 
 :func:`load_checkpoint` undoes the chunking and turns the "0".."n-1" dicts
 back into lists; NamedTuples stay dicts of their fields, which is what
-``compat.from_jax`` reads. ``msgpack`` is imported only when reading.
+``compat.from_jax`` reads. :func:`save_checkpoint` writes the same format
+from such a tree (lists and tuples become "0".."n-1" dicts), with every
+dict's keys sorted as JAX's ``tree_map`` inside flax's ``msgpack_serialize``
+leaves them, so a tree that equals a JAX train state's is written byte for
+byte as the JAX package writes it. ``msgpack`` is imported only when a file
+is read or written.
 """
 
 from __future__ import annotations
@@ -22,9 +27,17 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict
 
+import json
+import os
+import shutil
+from typing import Optional
+
 import numpy as np
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_MAX_CHUNK_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE
+_NOT_PORTED = ("not ported: the port writes msgpack checkpoints "
+               "synchronously (ROADMAP queue 1, item 23)")
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
@@ -78,3 +91,116 @@ def load_checkpoint(ckpt_dir: Path, alias: str) -> Dict[str, Any]:
             f"no '{alias}.msgpack' checkpoint in {ckpt_dir} (the port reads "
             "the msgpack backend only)")
     return msgpack_restore(path.read_bytes())
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    import msgpack
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot serialise {type(x).__name__} in a checkpoint")
+
+
+def _chunk(arr: np.ndarray) -> Dict[str, Any]:
+    """flax's ``_chunk``: a flat array split into 2**30-byte pieces."""
+    size = max(1, _MAX_CHUNK_BYTES // arr.dtype.itemsize)
+    flat = arr.reshape(-1)
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): flat[s:s + size] for i, s in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _state_dict(node: Any) -> Any:
+    """flax's ``to_state_dict`` of a tree of dicts, lists and numpy arrays,
+    with sorted keys and oversized arrays chunked."""
+    if isinstance(node, dict):
+        return {k: _state_dict(node[k]) for k in sorted(node, key=str)}
+    if isinstance(node, (list, tuple)):
+        return _state_dict({str(i): v for i, v in enumerate(node)})
+    if isinstance(node, np.ndarray) and node.nbytes > _MAX_CHUNK_BYTES:
+        return _chunk(node)
+    return node
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """flax's ``msgpack_serialize(to_state_dict(tree))`` for a tree of
+    dicts, lists and numpy arrays or scalars."""
+    import msgpack
+
+    return msgpack.packb(_state_dict(tree), default=_ext_pack,
+                         strict_types=True)
+
+
+def save_checkpoint(ckpt_dir: Path, alias: str, train_state: Dict[str, Any],
+                    metadata: Optional[Dict[str, Any]] = None,
+                    backend: str = "msgpack",
+                    async_save: bool = False) -> Path:
+    """Write ``<ckpt_dir>/<alias>.msgpack`` (published atomically with
+    ``os.replace``) and the ``<alias>.json`` metadata sidecar.
+    ``train_state`` is the JAX layout with numpy leaves (see
+    ``compat.from_jax.train_state_to_numpy``). The orbax backend and
+    asynchronous saves raise NotImplementedError."""
+    if backend == "orbax" or async_save:
+        raise NotImplementedError(
+            f"checkpoint backend={backend!r} async_save={async_save}: "
+            + _NOT_PORTED)
+    if backend != "msgpack":
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    path = ckpt_dir / f"{alias}.msgpack"
+    tmp = path.with_suffix(".tmp")
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(train_state))
+    os.replace(tmp, path)
+    # the alias's orbax artifact, if any, is now stale
+    shutil.rmtree(ckpt_dir / f"{alias}.orbax", ignore_errors=True)
+    if metadata is not None:
+        with open(ckpt_dir / f"{alias}.json", "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+    return path
+
+
+def copy_checkpoint(ckpt_dir: Path, src_alias: str, dst_alias: str,
+                    backend: str = "msgpack",
+                    async_copy: bool = False) -> None:
+    """Duplicate a published alias (``.msgpack`` and ``.json``), e.g.
+    ``best`` from a just-written ``last``, atomically."""
+    if backend == "orbax" or async_copy:
+        raise NotImplementedError(
+            f"copy_checkpoint backend={backend!r} async_copy={async_copy}: "
+            + _NOT_PORTED)
+    ckpt_dir = Path(ckpt_dir)
+    dst = ckpt_dir / f"{dst_alias}.msgpack"
+    tmp = dst.with_suffix(".tmp")
+    shutil.copyfile(ckpt_dir / f"{src_alias}.msgpack", tmp)
+    os.replace(tmp, dst)
+    shutil.rmtree(ckpt_dir / f"{dst_alias}.orbax", ignore_errors=True)
+    meta = ckpt_dir / f"{src_alias}.json"
+    if meta.exists():
+        shutil.copyfile(meta, ckpt_dir / f"{dst_alias}.json")
+
+
+def has_checkpoint(ckpt_dir: Path, alias: str) -> bool:
+    """Whether ``<alias>.msgpack`` exists (the only backend the port
+    reads)."""
+    return (Path(ckpt_dir) / f"{alias}.msgpack").exists()
+
+
+def load_metadata(ckpt_dir: Path, alias: str) -> Dict[str, Any]:
+    """The ``<alias>.json`` sidecar, or {} when there is none."""
+    path = Path(ckpt_dir) / f"{alias}.json"
+    if not path.exists():
+        return {}
+    with open(path) as f:
+        return json.load(f)

@@ -1,4 +1,4 @@
-"""The JAX package's parameter pytree -> the port's modules.
+"""The JAX package's train-state pytree <-> the port's modules.
 
 ``params``/``model_state`` are the pytrees of ``mmqg_tpu.models.qg_model
 .init`` (or a checkpoint's "params"/"model_state"), with numpy or
@@ -9,16 +9,22 @@ as it is -- float32, bit for bit -- onto ``device``:
   params["text_enc"]["lstm"]["layers"][i]         wx (In, 4H), wh (H, 4H), b
   params["video_enc"]["convs"][i]                 w (3, 3, In, Out), b
   params["video_enc"]["bns"][i] + model_state["video_enc"]["bns"][i]
-                                                  scale, bias + mean, var
+                                                  scale, bias + mean, var, count
   params["video_enc"]["lstm"]["layers"][0]
   params["audio_enc"]["convs"][i], ["fc1"|"fc2"|"fc3"]   w (In, Out), b
   params["decoder"]["attn"]                       AttnParams (or its dict)
   params["decoder"]["lstm"], params["decoder"]["out"]
+
+:func:`train_state_to_numpy` goes the other way, for a checkpoint: the
+model's parameters and batchnorm state, the optimizer state (already in
+optax's layout, see ``mmqg_tpu_torch.optim``) and the step, as numpy.
+:func:`load_train_state` copies such a tree (e.g. a JAX-written
+checkpoint's) back into a model and returns its optimizer state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -26,19 +32,19 @@ import torch
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models.audio_encoder import AudioEncoder
 from mmqg_tpu_torch.models.decoder import Decoder
+from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import QGModel
 from mmqg_tpu_torch.models.text_encoder import TextEncoder
 from mmqg_tpu_torch.models.video_encoder import VideoEncoder
 from mmqg_tpu_torch.ops.attention import TriModalAttention
-
-_ATTN_FIELDS = ("w_text", "b_text", "w_video", "b_video", "w_audio",
-                "b_audio")
+from mmqg_tpu_torch.optim import tree_map
 
 
 def params_from_numpy(params: Dict[str, Any], model_state: Dict[str, Any],
-                      device="cpu") -> QGModel:
+                      device="cpu", *, trainable: bool = False) -> QGModel:
     """Build the tri-modal attention model on ``device`` from JAX-layout
-    parameters (see the module docstring for the tree)."""
+    parameters (see the module docstring for the tree). Parameters
+    require grad only when ``trainable``."""
     device = torch.device(device)
 
     def t(x) -> torch.Tensor:
@@ -58,15 +64,67 @@ def params_from_numpy(params: Dict[str, Any], model_state: Dict[str, Any],
     bn_state = model_state["video_enc"]["bns"]
     video = VideoEncoder(
         [conv(c) for c in vp["convs"]],
-        [L.BatchNorm(t(bn["scale"]), t(bn["bias"]), t(s["mean"]), t(s["var"]))
+        [L.BatchNorm(t(bn["scale"]), t(bn["bias"]), t(s["mean"]), t(s["var"]),
+                     t(s["count"]) if "count" in s else None)
          for bn, s in zip(vp["bns"], bn_state)],
         lstm(vp["lstm"]))
     audio = AudioEncoder([conv(c) for c in ap["convs"]], dense(ap["fc1"]),
                          dense(ap["fc2"]), dense(ap["fc3"]))
     attn = dp["attn"]
     attn = attn._asdict() if hasattr(attn, "_asdict") else attn
-    decoder = Decoder(TriModalAttention(*(t(attn[k]) for k in _ATTN_FIELDS)),
-                      lstm(dp["lstm"]), dense(dp["out"]))
-    return QGModel(t(params["embedding"]["table"]),
-                   TextEncoder(lstm(params["text_enc"]["lstm"])), video,
-                   audio, decoder)
+    decoder = Decoder(
+        TriModalAttention(*(t(attn[k]) for k in qg_model.ATTN_FIELDS)),
+        lstm(dp["lstm"]), dense(dp["out"]))
+    model = QGModel(t(params["embedding"]["table"]),
+                    TextEncoder(lstm(params["text_enc"]["lstm"])), video,
+                    audio, decoder)
+    return model.requires_grad_(trainable)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def tree_from_numpy(tree: Any, device="cpu") -> Any:
+    """numpy leaves -> tensors on ``device``, dtypes kept (int32 counts)."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def train_state_to_numpy(model: QGModel, opt_state: Any,
+                         step: int) -> Dict[str, Any]:
+    """The JAX train state of ``mmqg_tpu.train.init_train_state``:
+    {"params", "model_state", "opt_state", "step" (int32)}, numpy leaves,
+    lists for lists and dicts for NamedTuples (their state-dict form)."""
+    return {"params": tree_to_numpy(qg_model.param_tree(model)),
+            "model_state": tree_to_numpy(qg_model.model_state(model)),
+            "opt_state": tree_to_numpy(opt_state),
+            "step": np.asarray(step, np.int32)}
+
+
+def _structure(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None
+
+
+def load_train_state(model: QGModel, state: Dict[str, Any],
+                     opt_template: Any) -> Tuple[Any, int]:
+    """Copy a train state (``train_state_to_numpy``'s layout, or a JAX
+    checkpoint as ``checkpoint.load_checkpoint`` reads it) into ``model``
+    in place. Returns (its optimizer state as tensors on the model's
+    device, its step). ``opt_template`` is the optimizer's own state
+    (``optimizer.init``); a checkpoint written for another optimizer
+    configuration raises ValueError."""
+    if _structure(state["opt_state"]) != _structure(opt_template):
+        raise ValueError("the checkpoint's opt_state does not match this "
+                         "optimizer's (optim, schedule, clip, weight decay "
+                         "or text_non_trainable differ)")
+    device = model.embedding.device
+    with torch.no_grad():
+        tree_map(lambda p, a: p.copy_(torch.from_numpy(np.array(a))),
+                 qg_model.param_tree(model), state["params"])
+        tree_map(lambda b, a: b.copy_(torch.from_numpy(np.array(a)).reshape(
+            b.shape)), qg_model.model_state(model), state["model_state"])
+    return tree_from_numpy(state["opt_state"], device), int(state["step"])

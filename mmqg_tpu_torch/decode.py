@@ -31,13 +31,18 @@ def _bucket(need: int, av: int, granularity: int = 8) -> int:
     return av
 
 
+def audio_examples_needed(mc: qg_model.ModelConfig, audio_len) -> int:
+    """Host-side max whole mel-example count of a batch."""
+    return int(np.max(np.maximum(
+        0, (np.asarray(audio_len) - mc.stft_window) // mc.stft_hop + 1)
+        // mc.mel_frames))
+
+
 def audio_bucket(mc: qg_model.ModelConfig, audio_len) -> int:
     """Host-side audio bucket: the example slots the VGGish runs on, from
     the batch's largest whole-example count."""
     av = mc.av_max_length
-    need = int(np.max(np.maximum(
-        0, (np.asarray(audio_len) - mc.stft_window) // mc.stft_hop + 1)
-        // mc.mel_frames))
+    need = audio_examples_needed(mc, audio_len)
     return _bucket(max(1, min(need, av)), av)
 
 
@@ -99,8 +104,9 @@ def encode(model: qg_model.QGModel, mc: qg_model.ModelConfig,
            dtype: torch.dtype = torch.bfloat16) -> Tuple[Memories, L.State]:
     """Encode with the batch's AV buckets (``decode.encode_jit``)."""
     cap, fcap = _caps(mc, batch, audio_cap, frames_cap)
-    return qg_model.encode(model, mc, batch, audio_cap=cap, frames_cap=fcap,
-                           dtype=dtype)
+    mem, state, _ = qg_model.encode(model, mc, batch, audio_cap=cap,
+                                    frames_cap=fcap, dtype=dtype)
+    return mem, state
 
 
 def decode_batch(model: qg_model.QGModel, mc: qg_model.ModelConfig,

@@ -8,17 +8,25 @@
 
 The LSTM step and the vocab projection are library products, as they were
 plain XLA ops in JAX. The initial state is the text encoder's latched state.
+
+Training runs :meth:`Decoder.teacher_forced_logits` (``decoder.py``'s
+``teacher_forced_logits``): one step per target position under autograd,
+with the differentiable ``trimodal_attention_xla`` in place of K2, dropout
+between LSTM layers, and one vocab projection over all (B * T) rows after
+the loop.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from mmqg_tpu_torch.models import layers as L
-from mmqg_tpu_torch.ops.attention import TriModalAttention, trimodal_attention
+from mmqg_tpu_torch.ops.attention import (TriModalAttention,
+                                          trimodal_attention,
+                                          trimodal_attention_xla)
 
 Tensor = torch.Tensor
 
@@ -67,3 +75,28 @@ class Decoder(nn.Module):
         x = torch.cat([emb, ctx_t, ctx_a, ctx_v], dim=-1)
         top, new_state = L.lstm_step(self.lstm, x, state, dtype=dtype)
         return self.out(top, dtype), new_state, maps
+
+    def teacher_forced_logits(self, emb_table: Tensor, inputs: Tensor,
+                              mem: Memories, init_state: L.State, *,
+                              dropout: float = 0.0,
+                              generator: Optional[torch.Generator] = None,
+                              dtype: torch.dtype = torch.bfloat16) -> Tensor:
+        """All-step teacher forcing over ``inputs (B, T)`` ([<start>,
+        target[:-1]]) with a fresh dropout mask per step from ``generator``.
+        Returns logits (B, T, V) f32."""
+        state = init_state
+        tops = []
+        for t in range(inputs.shape[1]):
+            emb = L.embed(emb_table, inputs[:, t])
+            query = torch.cat([emb, state[0][-1]], dim=-1)
+            ctx_t, ctx_a, ctx_v, _ = trimodal_attention_xla(
+                self.attn, query, mem.enc_text, mem.enc_video, mem.enc_audio,
+                mem.text_len, mem.video_len, mem.audio_len, dtype=dtype)
+            x = torch.cat([emb, ctx_t, ctx_a, ctx_v], dim=-1)
+            top, state = L.lstm_step(self.lstm, x, state,
+                                     dropout_rate=dropout,
+                                     generator=generator, dtype=dtype)
+            tops.append(top)
+        tops = torch.stack(tops, dim=1)                      # (B, T, H)
+        B, T, H = tops.shape
+        return self.out(tops.reshape(B * T, H), dtype).reshape(B, T, -1)

@@ -16,12 +16,17 @@ its operands rounded to the compute ``dtype`` and sums in float32 (JAX's
 would round the *result* to bfloat16 instead, so :func:`mm` rounds the
 operands and multiplies in float32: a product of two bfloat16 values is
 exact in float32, so only the summation order differs from JAX.
-The module is inference-only: parameters never require grad.
+
+Parameters are built frozen (``requires_grad=False``), which is what
+serving wants; a trainer turns them on with ``model.requires_grad_(True)``.
+Dropout draws from an explicit ``torch.Generator``: JAX's threefry streams
+are not reproduced, only their distribution (keep probability ``1 - rate``,
+kept values scaled by ``1 / (1 - rate)``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +63,15 @@ def embed(table: Tensor, ids: Tensor) -> Tensor:
     return F.embedding(ids.long(), table)
 
 
+def dropout(x: Tensor, rate: float, generator: torch.Generator) -> Tensor:
+    """Inverted dropout with a fresh mask from ``generator`` (on ``x``'s
+    device): keep with probability ``1 - rate``, scale kept values by
+    ``1 / (1 - rate)`` -- ``jnp.where(keep, x / (1 - rate), 0)``."""
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 # ------------------------------------------------------------------------ LSTM
 
 class LSTMLayer(nn.Module):
@@ -89,17 +103,25 @@ def cell(layer: LSTMLayer, x: Tensor, h: Tensor, c: Tensor, *,
 
 
 def lstm_step(lstm: LSTM, x: Tensor, state: State, *,
+              dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None,
               dtype: torch.dtype = torch.bfloat16) -> Tuple[Tensor, State]:
-    """One time step through the whole stack (``layers.lstm_step``, no
-    dropout). ``state`` is (h, c), each (L, B, H). Returns (top h, state)."""
+    """One time step through the whole stack (``layers.lstm_step``).
+    ``state`` is (h, c), each (L, B, H). With a ``generator`` and a rate
+    > 0 (training), every layer's output but the last is dropped out
+    before it feeds the next layer; the state keeps the value before
+    dropout. Returns (top h, state)."""
     h_all, c_all = state
     hs: List[Tensor] = []
     cs: List[Tensor] = []
     inp = x
+    n = len(lstm.layers)
     for li, layer in enumerate(lstm.layers):
         inp, c_new = cell(layer, inp, h_all[li], c_all[li], dtype=dtype)
         hs.append(inp)
         cs.append(c_new)
+        if generator is not None and dropout_rate > 0.0 and li < n - 1:
+            inp = dropout(inp, dropout_rate, generator)
     return inp, (torch.stack(hs), torch.stack(cs))
 
 
@@ -155,22 +177,60 @@ def conv2d(x: Tensor, w: Tensor, b: Tensor, *, padding: str = "VALID",
     return y.permute(0, 2, 3, 1).to(out_dtype) + b.to(out_dtype)
 
 
+class _MaxPoolTies(torch.autograd.Function):
+    """Non-overlapping max pool whose backward splits the cotangent equally
+    among tied maxima, as JAX's ``reduce_max`` JVP does (``F.max_pool2d``
+    routes all of it to one index). Ties are common in bf16 after ReLU."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, window: int) -> Tensor:
+        N, H, W, C = x.shape
+        Hc, Wc = (H // window) * window, (W // window) * window
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window)
+        y = y.permute(0, 2, 3, 1)
+        ctx.save_for_backward(x, y)
+        ctx.window = window
+        ctx.crop = (Hc, Wc)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy: Tensor):
+        x, y = ctx.saved_tensors
+        k = ctx.window
+        Hc, Wc = ctx.crop
+        N, _, _, C = x.shape
+        xr = x[:, :Hc, :Wc].reshape(N, Hc // k, k, Wc // k, k, C)
+        hit = (xr == y[:, :, None, :, None]).to(gy.dtype)
+        share = gy / hit.sum(dim=(2, 4))
+        gx = torch.zeros_like(x, dtype=gy.dtype)
+        gx[:, :Hc, :Wc] = (hit * share[:, :, None, :, None]).reshape(
+            N, Hc, Wc, C)
+        return gx, None
+
+
 def maxpool2d(x: Tensor, window: int) -> Tensor:
     """Non-overlapping NHWC max pool that drops the ragged edge: the JAX
-    crop + reshape-max, which is max_pool2d with stride = window."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, window)
-    return y.permute(0, 2, 3, 1)
+    crop + reshape-max, which is max_pool2d with stride = window, with
+    JAX's gradient on ties."""
+    return _MaxPoolTies.apply(x, window)
 
 
 # ------------------------------------------------------------------ batchnorm
 
+_BN_MOMENTUM = 0.1
+
+
 class BatchNorm(nn.Module):
-    def __init__(self, scale: Tensor, bias: Tensor, mean: Tensor, var: Tensor):
+    def __init__(self, scale: Tensor, bias: Tensor, mean: Tensor, var: Tensor,
+                 count: Optional[Tensor] = None):
         super().__init__()
         self.scale = _frozen(scale)
         self.bias = _frozen(bias)
         self.register_buffer("mean", mean)
         self.register_buffer("var", var)
+        # updates applied to the running stats (the JAX state's "count")
+        self.register_buffer("count", torch.zeros((), device=mean.device)
+                             if count is None else count.reshape(()))
 
     def forward(self, x: Tensor, eps: float = 1e-5) -> Tensor:
         """Eval batchnorm on channel-last ``x``: f32 maths, cast back to
@@ -178,3 +238,33 @@ class BatchNorm(nn.Module):
         y = ((x.float() - self.mean) * torch.rsqrt(self.var + eps)
              * self.scale + self.bias)
         return y.to(x.dtype)
+
+    def train_forward(self, x: Tensor, mask: Tensor, eps: float = 1e-5
+                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Train batchnorm on channel-last ``(N, H, W, C)`` ``x`` with the
+        statistics of the rows where ``mask (N,)`` is set
+        (``video_encoder.cnn_features(train=True)``): normalise with the
+        biased variance; the new running variance takes the unbiased one,
+        n = valid rows x H x W. Returns (y in ``x.dtype``, the new running
+        state, detached -- the buffers are not touched)."""
+        xf = x.float()
+        m = mask.to(torch.float32)[:, None, None, None]
+        denom = torch.clamp(m.sum() * x.shape[1] * x.shape[2], min=1.0)
+        mean = (xf * m).sum(dim=(0, 1, 2)) / denom
+        var = (((xf - mean) ** 2) * m).sum(dim=(0, 1, 2)) / denom
+        with torch.no_grad():
+            unbiased = var * (denom / torch.clamp(denom - 1.0, min=1.0))
+            state = {"mean": (1 - _BN_MOMENTUM) * self.mean
+                     + _BN_MOMENTUM * mean,
+                     "var": (1 - _BN_MOMENTUM) * self.var
+                     + _BN_MOMENTUM * unbiased,
+                     "count": self.count + 1}
+        y = (xf - mean) * torch.rsqrt(var + eps) * self.scale + self.bias
+        return y.to(x.dtype), state
+
+    def load_state(self, state: Dict[str, Tensor]) -> None:
+        """Write running statistics (from :meth:`train_forward`) into the
+        buffers."""
+        with torch.no_grad():
+            for k in ("mean", "var", "count"):
+                getattr(self, k).copy_(state[k])

@@ -1,7 +1,8 @@
 """The assembled model and its encode (``mmqg_tpu/models/qg_model.py``).
 
 Ported: ``mode="trimodal"``, ``decoder="attn"``, ``video_encoder=
-"conv_lstm"`` -- the flagship serving configuration. Other modes, the
+"conv_lstm"`` -- the flagship configuration, for serving (``encode``) and
+training (``encode(train=True)``, ``loss_fn``). Other modes, the
 non-attention decoder and the R(2+1)D backbone raise NotImplementedError.
 """
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmqg_tpu_torch.data.vocab import START_ID
 from mmqg_tpu_torch.models import frontends
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models.audio_encoder import BLOCKS as AUDIO_BLOCKS
@@ -202,23 +204,79 @@ class QGModel(nn.Module):
         self.decoder = decoder
 
 
+ATTN_FIELDS = ("w_text", "b_text", "w_video", "b_video", "w_audio",
+               "b_audio")  # AttnParams' fields, in order
+
+
+def param_tree(model: QGModel) -> Dict:
+    """The model's parameters as the JAX package's ``params`` pytree (lists
+    for lists, the attention's ``AttnParams`` as a dict of its fields); the
+    leaves are the module's own ``nn.Parameter`` objects."""
+    def lstm(m):
+        return {"layers": [{"wx": l.wx, "wh": l.wh, "b": l.b}
+                           for l in m.layers]}
+
+    def dense(d):
+        return {"w": d.w, "b": d.b}
+
+    def convs(cs):
+        return [{"w": c.w, "b": c.b} for c in cs]
+
+    v, a, d = model.video_enc, model.audio_enc, model.decoder
+    return {
+        "embedding": {"table": model.embedding},
+        "text_enc": {"lstm": lstm(model.text_enc.lstm)},
+        "video_enc": {"convs": convs(v.convs),
+                      "bns": [{"scale": bn.scale, "bias": bn.bias}
+                              for bn in v.bns],
+                      "lstm": lstm(v.lstm)},
+        "audio_enc": {"convs": convs(a.convs), "fc1": dense(a.fc1),
+                      "fc2": dense(a.fc2), "fc3": dense(a.fc3)},
+        "decoder": {"attn": {k: getattr(d.attn, k) for k in ATTN_FIELDS},
+                    "lstm": lstm(d.lstm), "out": dense(d.out)},
+    }
+
+
+def model_state(model: QGModel) -> Dict:
+    """The batchnorm running statistics as the JAX ``model_state`` pytree
+    (the buffers themselves)."""
+    return {"video_enc": {"bns": [{"mean": bn.mean, "var": bn.var,
+                                   "count": bn.count}
+                                  for bn in model.video_enc.bns]}}
+
+
+def load_model_state(model: QGModel, state: Dict) -> None:
+    """Write a ``model_state`` pytree (e.g. ``encode(train=True)``'s) into
+    the batchnorm buffers."""
+    for bn, s in zip(model.video_enc.bns, state["video_enc"]["bns"]):
+        bn.load_state(s)
+
+
 def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
+           train: bool = False, generator: Optional[torch.Generator] = None,
            audio_cap: Optional[int] = None, frames_cap: Optional[int] = None,
-           dtype: torch.dtype = torch.bfloat16) -> Tuple[Memories, L.State]:
-    """Tri-modal encode (``qg_model.encode``, eval). ``batch`` holds tensors
-    on one device: context_ids, context_len, frames (uint8 NHWC),
-    frames_len, audio_pcm (int16), audio_len.
+           dtype: torch.dtype = torch.bfloat16
+           ) -> Tuple[Memories, L.State, Dict]:
+    """Tri-modal encode (``qg_model.encode``). ``batch`` holds tensors on
+    one device: context_ids, context_len, frames (uint8 NHWC), frames_len,
+    audio_pcm (int16), audio_len.
 
     ``audio_cap``/``frames_cap`` bound the AV steps the encoders run; the
     memories are zero-padded back to ``av_max_length``, because the
     attention weights are sized for it. The audio tower is the bf16 VGGish
     (``embed_examples``), not the JAX package's int8 serving variant.
 
-    Returns (memories, decoder initial state)."""
+    ``train`` runs the trainable path: the text and video LSTMs through K4,
+    text dropout from ``generator``, and batchnorm over the valid frames.
+
+    Returns (memories, decoder initial state, new model_state): the new
+    batchnorm running statistics, detached, when training, else the
+    current ones."""
     check_supported(mc)
     av = mc.av_max_length
     enc_text, text_state = model.text_enc(
         model.embedding, batch["context_ids"], batch["context_len"],
+        train=train, dropout=mc.text_dropout, generator=generator,
         dtype=dtype)
 
     frames, frames_len = batch["frames"], batch["frames_len"]
@@ -232,8 +290,14 @@ def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
             "path, frontends.prepare_frames, is not ported)")
     norm = ((mc.vid_mean, mc.vid_std) if mc.normalize_video
             else ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)))
-    enc_video = model.video_enc(frames, frames_len, normalization=norm,
-                                dtype=dtype)
+    if train:
+        enc_video, bn_states = model.video_enc.train_forward(
+            frames, frames_len, normalization=norm, dtype=dtype)
+        new_state = {"video_enc": {"bns": bn_states}}
+    else:
+        enc_video = model.video_enc(frames, frames_len, normalization=norm,
+                                    dtype=dtype)
+        new_state = model_state(model)
     enc_video = torch.nn.functional.pad(
         enc_video, (0, 0, 0, av - enc_video.shape[1]))
 
@@ -254,4 +318,52 @@ def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
     mem = Memories(enc_text=enc_text, enc_video=enc_video,
                    enc_audio=enc_audio, text_len=batch["context_len"],
                    video_len=frames_len, audio_len=audio_len)
-    return mem, text_state
+    return mem, text_state, new_state
+
+
+def loss_fn(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
+            train: bool = True, generator: Optional[torch.Generator] = None,
+            dtype: torch.dtype = torch.bfloat16,
+            audio_cap: Optional[int] = None,
+            frames_cap: Optional[int] = None) -> Tuple[Tensor, Dict]:
+    """Teacher-forced masked cross-entropy (``qg_model.loss_fn``). Returns
+    (objective, aux): the objective is the mean over valid samples of each
+    sample's summed CE; aux holds ``loss_per_sample`` (each sample's CE over
+    its target length, averaged over valid samples), ``loss_per_token``,
+    ``n_tokens`` and ``state`` (the new model_state). ``batch`` also holds
+    target_ids, target_len and optionally ``valid``. Gradients need
+    ``train=True``: the eval encoders run K1, which has no backward.
+    Dropout (``mc.text_dropout``, ``mc.dropout``) draws from
+    ``generator``; without one there is none."""
+    target = batch["target_ids"].long()                 # (B, T)
+    B, T = target.shape
+    start = torch.full((B, 1), START_ID, dtype=target.dtype,
+                       device=target.device)
+    dec_inputs = torch.cat([start, target[:, :-1]], dim=1)
+    mem, dec_state, new_state = encode(
+        model, mc, batch, train=train, generator=generator, dtype=dtype,
+        audio_cap=audio_cap, frames_cap=frames_cap)
+    logits = model.decoder.teacher_forced_logits(
+        model.embedding, dec_inputs, mem, dec_state, dropout=mc.dropout,
+        generator=generator if train else None, dtype=dtype)
+
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_ll = logp.gather(-1, target[..., None])[..., 0]
+    target_len = batch["target_len"]
+    step_mask = (torch.arange(T, device=target.device)[None, :]
+                 < target_len[:, None])
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones((B,), dtype=torch.bool, device=target.device)
+    step_mask = step_mask & valid[:, None]
+    ce = -(tok_ll * step_mask)                          # (B, T)
+    per_sample_sum = ce.sum(dim=1)
+    n_valid = torch.clamp(valid.sum(), min=1)
+    objective = per_sample_sum.sum() / n_valid
+    per_sample_mean = per_sample_sum / torch.clamp(target_len, min=1)
+    n_tokens = step_mask.sum()
+    aux = {"state": new_state,
+           "loss_per_sample": (per_sample_mean * valid).sum() / n_valid,
+           "loss_per_token": ce.sum() / torch.clamp(n_tokens, min=1),
+           "n_tokens": n_tokens}
+    return objective, aux

@@ -1,10 +1,10 @@
 """Video encoder: per-frame CNN pyramid -> LSTM over frames
-(``mmqg_tpu/models/video_encoder.py``, eval mode).
+(``mmqg_tpu/models/video_encoder.py``).
 
   conv(3->4) relu bn, conv(4->6) relu bn, maxpool3,
   conv(6->8) relu bn, conv(8->10) relu bn, maxpool3,
   flatten in NHWC order (10 x 10 x 10 = 1000 at 112 x 112),
-  LSTM(1000 -> H, 1 layer) over the frames, through K1.
+  LSTM(1000 -> H, 1 layer) over the frames: K1 in eval, K4 in training.
 
 All B*T frames go through the convs as one batch, in the compute dtype, with
 batchnorm maths in f32. uint8 frames feed conv1 directly: the ``/255``, mean
@@ -13,13 +13,15 @@ and std are folded into its weights.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mmqg_tpu_torch.models import layers as L
+from mmqg_tpu_torch.models.text_encoder import mask_past
 from mmqg_tpu_torch.ops.lstm import lstm_stack
+from mmqg_tpu_torch.ops.lstm_train import lstm_stack_train
 
 Tensor = torch.Tensor
 
@@ -55,27 +57,58 @@ class VideoEncoder(nn.Module):
         self.lstm = lstm
 
     def cnn_features(self, frames: Tensor, *, normalization=None,
-                     dtype: torch.dtype = torch.bfloat16) -> Tensor:
-        """(N, H, W, 3) frames -> (N, flatten_dim) features in ``dtype``.
-        uint8 frames take ``normalization=(mean, std)``, folded into conv1."""
+                     frame_mask: Optional[Tensor] = None,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
+        """(N, H, W, 3) frames -> ((N, flatten_dim) features in ``dtype``,
+        new batchnorm running states). uint8 frames take
+        ``normalization=(mean, std)``, folded into conv1. With a
+        ``frame_mask (N,)`` (training) batchnorm normalises with the
+        statistics of the masked-in frames and the states are the updated
+        running statistics; without one it runs in eval mode and there are
+        none."""
         x = frames
+        states = []
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             w, b = conv.w, conv.b
             if i == 0 and normalization is not None:
                 w, b = fold_normalization(w, b, *normalization)
             x = torch.relu(L.conv2d(x, w, b, dtype=dtype, out_dtype=dtype))
-            x = bn(x)
+            if frame_mask is None:
+                x = bn(x)
+            else:
+                x, st = bn.train_forward(x, frame_mask)
+                states.append(st)
             if i in (1, 3):
                 x = L.maxpool2d(x, 3)
-        return x.reshape(x.shape[0], -1)
+        return x.reshape(x.shape[0], -1), states
 
     def forward(self, frames: Tensor, frames_len: Tensor, *,
                 normalization=None,
                 dtype: torch.dtype = torch.bfloat16) -> Tensor:
         """(B, T, H, W, 3) frames -> (B, T, hidden) f32, zeroed past the
-        length."""
+        length (eval: batchnorm running statistics, K1)."""
         B, T = frames.shape[:2]
         flat = frames.reshape((B * T,) + frames.shape[2:])
-        feats = self.cnn_features(flat, normalization=normalization,
-                                  dtype=dtype).reshape(B, T, -1)
-        return lstm_stack(self.lstm, feats, frames_len, dtype=dtype)[0]
+        feats, _ = self.cnn_features(flat, normalization=normalization,
+                                     dtype=dtype)
+        return lstm_stack(self.lstm, feats.reshape(B, T, -1), frames_len,
+                          dtype=dtype)[0]
+
+    def train_forward(self, frames: Tensor, frames_len: Tensor, *,
+                      normalization=None,
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
+        """Training (``video_encoder.apply(train=True)``): batchnorm over
+        the valid frames only, the LSTM through K4, outputs zeroed past the
+        length. Returns (outputs (B, T, hidden) f32, the new batchnorm
+        running states, detached -- the buffers are not touched)."""
+        B, T = frames.shape[:2]
+        flat = frames.reshape((B * T,) + frames.shape[2:])
+        mask = (torch.arange(T, device=frames.device)[None, :]
+                < frames_len[:, None]).reshape(-1)
+        feats, states = self.cnn_features(flat, normalization=normalization,
+                                          frame_mask=mask, dtype=dtype)
+        outs, _ = lstm_stack_train(self.lstm, feats.reshape(B, T, -1),
+                                   dtype=dtype)
+        return mask_past(outs, frames_len), states

@@ -32,6 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "mmqg_lstm_seq": [_P] * 11 + [_I] * 5 + [_P],
     "mmqg_trimodal_attention": [_P] * 13 + [_I] * 8 + [_P],
+    "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "mmqg_lstm_train_bwd": [_P] * 17 + [_I] * 5 + [_P],
 }
 
 

@@ -16,8 +16,14 @@ rounds alpha to bf16 there; in f32 the two are the same function.)
 
 The kernel takes the three weight matrices pre-transposed and concatenated,
 ``w_t (Lt + 2La, Dq)`` ([text | video | audio] rows), so each score is a
-dot product over one contiguous row; :class:`TriModalAttention` builds it
-once when the weights are loaded.
+dot product over one contiguous row; :meth:`TriModalAttention.weights`
+builds it once per decode.
+
+Training differentiates :func:`trimodal_attention_xla`, the port of the JAX
+package's ``trimodal_attention_xla`` (what its ``loss_fn`` runs): plain
+PyTorch under autograd, with that function's rounding -- alpha is cast to
+the compute dtype before the context products. K2 has no backward, as the
+Pallas kernel has none.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from mmqg_tpu_torch.models.layers import mm
 from mmqg_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
@@ -46,15 +53,13 @@ class TriModalAttention(nn.Module):
                         ("w_video", w_video), ("b_video", b_video),
                         ("w_audio", w_audio), ("b_audio", b_audio)):
             setattr(self, name, nn.Parameter(t, requires_grad=False))
-        self.register_buffer("w_t", torch.cat(
-            [w_text, w_video, w_audio], dim=1).t().contiguous(),
-            persistent=False)
-        self.register_buffer("b_all", torch.cat([b_text, b_video, b_audio]),
-                             persistent=False)
 
     def weights(self, dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
-        """(w_t in the compute dtype, f32 bias) -- hoist out of a decode."""
-        return self.w_t.to(dtype), self.b_all
+        """(w_t in the compute dtype, f32 bias) from the current weights --
+        hoist out of a decode."""
+        w_t = torch.cat([self.w_text, self.w_video, self.w_audio], dim=1).t()
+        b = torch.cat([self.b_text, self.b_video, self.b_audio])
+        return w_t.to(dtype).contiguous(), b
 
 
 def trimodal_attention_plain(w_t: Tensor, b: Tensor, q: Tensor,
@@ -142,3 +147,34 @@ def trimodal_attention(w_t: Tensor, b: Tensor, q: Tensor, enc_text: Tensor,
 
 
 trimodal_attention.launches = 0
+
+
+def trimodal_attention_xla(attn: TriModalAttention, query: Tensor,
+                           enc_text: Tensor, enc_video: Tensor,
+                           enc_audio: Tensor, text_len: Tensor,
+                           video_len: Tensor, audio_len: Tensor, *,
+                           dtype: torch.dtype = torch.bfloat16):
+    """Differentiable attention step (``attention.trimodal_attention_xla``):
+    one fused score product over the three heads, masked f32 softmaxes, and
+    context products with alpha and the memories rounded to ``dtype``.
+    Returns (ctx_text (B, Ht), ctx_audio (B, Ha), ctx_video (B, Hv), maps),
+    f32."""
+    w_all = torch.cat([attn.w_text, attn.w_video, attn.w_audio], dim=1)
+    b_all = torch.cat([attn.b_text, attn.b_video, attn.b_audio])
+    scores = mm(query, w_all, dtype) + b_all
+    Lt, La = attn.w_text.shape[1], attn.w_video.shape[1]
+    alphas = []
+    for seg, length in ((scores[:, :Lt], text_len),
+                        (scores[:, Lt:Lt + La], video_len),
+                        (scores[:, Lt + La:], audio_len)):
+        mask = (torch.arange(seg.shape[1], device=seg.device)[None, :]
+                < length[:, None])
+        alphas.append(torch.softmax(torch.where(mask, seg, _NEG_INF), dim=-1))
+    a_t, a_v, a_a = alphas
+
+    def ctx(a, mem):
+        return torch.einsum("bl,blh->bh", a.to(dtype).float(),
+                            mem.to(dtype).float())
+
+    return (ctx(a_t, enc_text), ctx(a_a, enc_audio), ctx(a_v, enc_video),
+            {"text": a_t, "audio": a_a, "video": a_v})

@@ -99,3 +99,19 @@ def test_reader_undoes_lists_namedtuples_chunks_and_bf16(monkeypatch,
     np.testing.assert_array_equal(out["big"], tree["big"])
     with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(tmp_path, "missing")
+
+
+def test_batchnorm_count_is_carried(saved):
+    """The batchnorm ``count`` leaf survives JAX -> port -> JAX, so a
+    port-written checkpoint's model_state equals the JAX one leaf for leaf
+    (it used to be dropped on the way in): the serialised bytes match."""
+    from mmqg_tpu_torch.compat.from_jax import train_state_to_numpy
+
+    _, _, params, state, _ = saved
+    state = jax.tree.map(np.asarray, state)
+    for i, bn in enumerate(state["video_enc"]["bns"]):
+        bn["count"] = np.asarray(3.0 + i, np.float32)
+    model = params_from_numpy(params, state)
+    assert [float(bn.count) for bn in model.video_enc.bns] == [3, 4, 5, 6]
+    back = train_state_to_numpy(model, [], 0)["model_state"]
+    assert ckpt.msgpack_serialize(back) == ckpt.msgpack_serialize(state)

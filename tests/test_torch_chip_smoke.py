@@ -1,6 +1,7 @@
 """chip_smoke.py, rehearsed on the CPU: it refuses to run without a CUDA
-device (and alone, without the repo), and its request and pipeline driving
-works end to end at a tiny size with the plain kernel versions."""
+device (and alone, without the repo), and its request, pipeline and
+training driving works end to end at a tiny size with the plain kernel
+versions."""
 
 import json
 import shutil
@@ -12,10 +13,14 @@ import numpy as np
 import torch
 
 import chip_smoke
+from mmqg_tpu_torch.compat.from_jax import params_from_numpy
+from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops.attention import trimodal_attention
 from mmqg_tpu_torch.ops.lstm import lstm_seq
+from mmqg_tpu_torch.optim import tree_leaves
 from mmqg_tpu_torch.pipeline import QGPipeline
+from mmqg_tpu_torch.train import Trainer, batch_arrays
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -74,3 +79,95 @@ def test_main_path_rehearsal_on_cpu():
     assert bool(torch.isfinite(logits).all())
     assert questions == pipe._to_words(toks.numpy())[:3]
     np.testing.assert_array_equal(mem.text_len.numpy()[3:], 1)
+
+
+def _tiny_train_model():
+    mc = ModelConfig(n_vocab=50, word_emb_dim=8, hidden_dim=16, text_layers=2,
+                     dec_layers=2, video_hidden_dim=16, audio_emb_dim=8,
+                     flatten_dim=10, context_max_length=12, av_max_length=5,
+                     target_steps=5, frame_size=32, mel_frames=16,
+                     mel_bins=16, sample_rate=1600, stft_window=64,
+                     stft_hop=32)
+    params, state = init_params(mc, seed=0)
+    i2w = {str(i): w for i, w in enumerate(
+        ["<pad>", "<start>", "<end>"] + [f"w{i}" for i in range(3, 50)])}
+    return mc, params, state, i2w
+
+
+def test_train_phase_rehearsal_on_cpu():
+    """Phase 8's driving (synthetic corpus, Trainer.run_epoch, the AV caps
+    Trainer picks, validate) at tiny widths on the CPU, where K4, K1 and
+    K2 run their plain versions and count no launch."""
+    mc, params, state, i2w = _tiny_train_model()
+    train_ds = chip_smoke.SyntheticCorpus(mc, i2w, 2, 4, seed=1)
+    val_ds = chip_smoke.SyntheticCorpus(mc, i2w, 1, 4, seed=2)
+    b = train_ds.batch(0)
+    assert b.frames.shape[2:] == (32, 32, 3) and b.size == 4
+    assert (b.target_ids[np.arange(4), b.target_len - 1] == 2).all()
+    np.testing.assert_array_equal(  # made from its seed alone
+        train_ds.batch(1).frames,
+        chip_smoke.SyntheticCorpus(mc, i2w, 2, 4, seed=1).batch(1).frames)
+    trainer = Trainer(chip_smoke.train_config(4), mc,
+                      params["embedding"]["table"], train_ds, val_ds,
+                      device="cpu",
+                      log_fn=lambda *a: None)
+    chip_smoke._reset_launches()
+    loss = trainer.run_epoch(0)
+    val = trainer.validate()
+    assert np.isfinite(loss) and np.isfinite(val["loss"])
+    assert trainer.train_state.step == 2
+    assert set(chip_smoke._launches().values()) == {0}
+
+
+def test_train_card_vs_cpu_step_rehearsal_on_cpu():
+    """Phase 9's one step, twice on the CPU: the same loss, gradients and
+    updated parameters (the phase compares the card with this)."""
+    mc, params, state, i2w = _tiny_train_model()
+    host = batch_arrays(chip_smoke.SyntheticCorpus(mc, i2w, 1, 4, 3).batch(0))
+    caps = {"audio_cap": 5, "frames_cap": 5}
+    params = chip_smoke.he_vggish(params)
+    a = chip_smoke._train_step_on("cpu", (params, state), mc, host, caps)
+    b = chip_smoke._train_step_on("cpu", (params, state), mc, host, caps)
+    assert a[0] == b[0] and np.isfinite(a[0])
+    for x, y in zip(tree_leaves(a[1]) + tree_leaves(a[2]),
+                    tree_leaves(b[1]) + tree_leaves(b[2])):
+        assert torch.equal(x, y)
+    assert set(a[3]) == {"fc1", "fc2", "fc3"}
+    names = list(chip_smoke._leaf_names(qg_model.param_tree(
+        params_from_numpy(params, state))))
+    assert len(names) == len(tree_leaves(a[1])) and names[0].startswith("/")
+    lines, failed = chip_smoke.compare_train_steps(a, b, names)
+    assert not failed and "/decoder/attn/b_audio 0.00e+00" in lines[1]
+    # He-scaled VGGish convs and tones give the audio attention's scores a
+    # gradient far above f32 noise (3e-7 here, and ~1e-8 at full width, with
+    # the default init)
+    grads = dict(zip(names, tree_leaves(a[1])))
+    assert float(grads["/decoder/attn/b_audio"].abs().max()) > 2e-5
+    # one leaf off by 1e-3 of its max fails, and is named
+    off = [g.clone() for g in tree_leaves(a[1])]
+    i = names.index("/decoder/attn/b_audio")
+    off[i] = off[i] + 1e-3 * float(off[i].abs().max())
+    g_off = chip_smoke.tree_map(lambda g: g, a[1])
+    _assign_leaves(g_off, iter(off))
+    lines, failed = chip_smoke.compare_train_steps(
+        (a[0], g_off, a[2], a[3]), b, names)
+    assert failed and lines[-1].endswith("/decoder/attn/b_audio")
+    # the conv towers' leaves have their own band: 1e-3 off passes there
+    off[i] = tree_leaves(a[1])[i]
+    j = names.index("/audio_enc/fc1/w")
+    off[j] = off[j] + 1e-3 * float(off[j].abs().max())
+    _assign_leaves(g_off, iter(off))
+    lines, failed = chip_smoke.compare_train_steps(
+        (a[0], g_off, a[2], a[3]), b, names)
+    assert not failed and "/audio_enc/fc1/w 1.00e-03" in lines[0]
+    assert "fc1 0 of" in lines[2]
+
+
+def _assign_leaves(tree, it):
+    """Replace ``tree``'s leaves in place, in ``tree_leaves`` order."""
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
+    for k in keys:
+        if isinstance(tree[k], (dict, list)):
+            _assign_leaves(tree[k], it)
+        else:
+            tree[k] = next(it)

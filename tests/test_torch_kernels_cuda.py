@@ -14,6 +14,9 @@ import torch
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
 from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
+from mmqg_tpu_torch.ops.lstm_train import (lstm_layer_train,
+                                           lstm_train_bwd_plain,
+                                           lstm_train_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +106,49 @@ def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
     args[3] = args[3].float()   # f32 text memory with a bf16 query
     with pytest.raises(ValueError, match="enc_text"):
         trimodal_attention(*args)
+
+
+# K4, f32: max |kernel - plain| of the forward 1e-5, each gradient within
+# 1e-4 of its max |plain| (summation order over B*T rows; chip_smoke.K4_*)
+K4_FWD_TOL, K4_GRAD_RTOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("B,T,In,H", [(20, 37, 300, 64), (33, 1, 24, 8),
+                                      (5, 9, 72, 128)])
+def test_lstm_layer_train_kernels_match_plain(dev, B, T, In, H):
+    rng = np.random.RandomState(2)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(
+            np.float32)).to(dev)
+    args = [t(In, 4 * H, s=In ** -0.5), t(H, 4 * H, s=H ** -0.5), t(4 * H),
+            t(B, T, In), t(B, H, s=0.5), t(B, H, s=0.5)]
+    cots = [t(B, T, H), t(B, T, H), t(B, H), t(B, H)]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches)
+    outs = lstm_layer_train(*leaves, torch.float32)
+    torch.autograd.backward(outs, cots)
+    assert (lstm_layer_train.fwd_launches,
+            lstm_layer_train.bwd_launches) == (before[0] + 1, before[1] + 1)
+    out, cseq, gates, hT, cT = lstm_train_fwd_plain(*args, torch.float32)
+    ref = lstm_train_bwd_plain(args[0], args[1], args[3], args[4], args[5],
+                               out, cseq, gates, *cots, torch.float32)
+    torch.cuda.synchronize()
+    for g, r in zip(outs, (out, cseq, hT, cT)):
+        assert float((g.detach() - r).abs().max()) <= K4_FWD_TOL
+    got = [leaves[i].grad for i in (0, 1, 2, 3, 4, 5)]  # dwx dwh db dx dh0 dc0
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= K4_GRAD_RTOL * float(
+            r.abs().max())
+
+
+def test_lstm_layer_train_kernel_rejects_what_it_cannot_take(dev):
+    wx, wh, b = (torch.zeros(8, 4 * 60, device=dev),
+                 torch.zeros(60, 4 * 60, device=dev),
+                 torch.zeros(4 * 60, device=dev))
+    xs, z = torch.zeros(2, 3, 8, device=dev), torch.zeros(2, 60, device=dev)
+    with pytest.raises(ValueError, match="H % 8"):
+        lstm_layer_train(wx, wh, b, xs, z, z)
+    with pytest.raises(ValueError, match="compute dtype"):
+        lstm_layer_train(wx[:, :32], wh[:8, :32], b[:32], xs,
+                         z[:, :8], z[:, :8], torch.float16)
