@@ -24,13 +24,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             CPU (He-scaled VGGish convs and tone audio, so the audio
             attention has gradients to compare): loss, every gradient leaf
             and the updated parameters within stated tolerances
+10. K3      vggish_conv kernel vs its plain version on the serving batch's
+            1184 examples of 96 x 64 log-mel, f32 and bf16, with the cuDNN
+            conv2..conv6 stack timed beside it; then the K3 path,
+            AudioEncoder.forward(use_kernel=True), must launch it 5x
+11. int8    vggish_conv_int8 vs its plain version on the same batch's
+            quantized inputs, each of the five layers, dynamic and static
+            scales: max |d| must be 0
+12. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
+            generate() with the static scales
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-non-zero before printing any result. It imports nothing of JAX (the port's
-trainer imports the JAX package's JAX-free config, dataset, metrics and
-pipelining modules, and the script checks at the end that no ``jax`` module
-was loaded).
+Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
+5x per encode), and times questions/s and encode ms with it and with the
+bf16 cuDNN tower in turns (int8, bf16, bf16, int8). Phase 6 also compares
+the int8 tower on the card with the CPU's plain int8, called through
+AudioEncoder.forward(int8=True): identical greedy tokens, logits within a
+stated tolerance.
+
+The line before the last is the kernels' JSON summary (each kernel's
+launches on its path, max |kernel - plain|, its ms, the plain version's,
+its bound on the H100 and what bounds it, and one library call's ms where
+one computes the same function); the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits non-zero before printing
+any result. It imports nothing of JAX and nothing of the JAX package
+``mmqg_tpu``, and checks at the end that no such module was loaded.
 """
 
 from __future__ import annotations
@@ -49,9 +66,12 @@ import torch
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.data.vocab import END_ID
+from mmqg_tpu_torch.models import frontends
+from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops import _build
+from mmqg_tpu_torch.ops import vggish as V
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
 from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
@@ -89,6 +109,24 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def max_abs(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+# Published peaks of one H100 SXM, dense (NVIDIA H100 datasheet)
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+HBM_BYTES_S = 3.35e12
+
+
+def bound(ops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: the larger of the operations at
+    ``dtype``'s peak and the bytes at the memory rate, and which bounds."""
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ------------------------------------------------------------------- phases
@@ -139,7 +177,56 @@ def _k1_case(rng, B, T, In, H, dtype, dev):
     err = max(max_abs(g, r) for g, r in zip(got, ref))
     ms = cuda_ms(lambda: lstm_seq(*args, dtype=dtype))
     plain_ms = cuda_ms(lambda: lstm_seq_plain(*args, dtype=dtype), iters=3)
-    return err, ms, plain_ms
+    # every step of every row, input projection and recurrence
+    bnd = bound(2 * B * T * (In + H) * 4 * H, nbytes(*args, *got), dtype)
+    return err, ms, plain_ms, bnd, args
+
+
+def cudnn_lstm(wx, wh, b, xs, lens, dtype):
+    """(forward, forward + backward) callables of cuDNN's LSTM (torch.nn.LSTM)
+    on K1/K4's weights in ``dtype``, over ``xs`` packed by ``lens``: the
+    library yardstick for K1 and K4 (the port never calls it)."""
+    In, H4 = wx.shape
+    lstm = torch.nn.LSTM(In, H4 // 4, batch_first=True).to(xs.device, dtype)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        xs.to(dtype), lens.cpu(), batch_first=True, enforce_sorted=False)
+    x = packed.data.requires_grad_(True)
+    packed = torch.nn.utils.rnn.PackedSequence(
+        x, packed.batch_sizes, packed.sorted_indices, packed.unsorted_indices)
+    cot = torch.randn((x.shape[0], H4 // 4), device=xs.device, dtype=dtype)
+
+    def fwd():
+        with torch.no_grad():
+            return lstm(packed)
+
+    def fwd_bwd():
+        out, _ = lstm(packed)
+        torch.autograd.backward(out.data, cot)
+    return fwd, fwd_bwd
+
+
+def cudnn_lstm_ms(wx, wh, b, xs, lens, dtype) -> dict:
+    """cuDNN LSTM forward and backward ms (backward: forward + backward less
+    the forward), or None each where cuDNN refuses ``dtype``. cuDNN runs
+    only each row's valid steps (packed); K1 and K4 run all T steps of
+    every row."""
+    try:
+        fwd, fwd_bwd = cudnn_lstm(wx, wh, b, xs, lens, dtype)
+        f = cuda_ms(fwd, iters=5, warmup=2)
+        return {"fwd": f, "bwd": cuda_ms(fwd_bwd, iters=5, warmup=2) - f}
+    except RuntimeError as e:   # a yardstick only: the port never calls it
+        log(f"  cuDNN LSTM in {dtype} refused: {str(e).splitlines()[0]}")
+        return {"fwd": None, "bwd": None}
+
+
+def fmt_ms(t) -> str:
+    return "n/a" if t is None else f"{t:.3f} ms"
 
 
 # max |kernel - plain| allowed. f32: the two differ only in summation order,
@@ -160,16 +247,28 @@ def phase_k1(card: str) -> dict:
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, T, In, H in shapes:
-            err, ms, plain_ms = _k1_case(rng, B, T, In, H, dtype, dev)
+            err, ms, plain_ms, bnd, args = _k1_case(rng, B, T, In, H, dtype,
+                                                    dev)
+            lib = cudnn_lstm_ms(args[1], args[2], args[3], args[0], args[6],
+                                dtype)
             log(f"K1 lstm_seq {name} B={B} T={T} In={In} H={H} "
                 f"{str(dtype)[6:]}: max|d|={err:.3e} (tol "
                 f"{K1_TOL[dtype]:.0e}) kernel {ms:.3f} ms plain "
-                f"{plain_ms:.3f} ms [{card}]")
+                f"{plain_ms:.3f} ms cuDNN LSTM fwd {fmt_ms(lib['fwd'])} bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {T} dependent "
+                f"steps) [{card}]")
             if not err <= K1_TOL[dtype]:
                 raise AssertionError(f"K1 {name} {dtype}: max|d| {err} > "
                                      f"{K1_TOL[dtype]}")
             if dtype == torch.bfloat16 and name == "text layer 0":
-                summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           **bnd, "library_ms": lib["fwd"]}
+    # the latency floor under K1's bound for a design that launches once a
+    # step: 283 back-to-back launches of a one-element kernel
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda: [one.add_(1.0) for _ in range(283)], iters=5)
+    log(f"K1 latency floor: 283 dependent one-element launches take "
+        f"{floor:.3f} ms ({floor / 283 * 1e3:.2f} us each) [{card}]")
     return summary
 
 
@@ -192,7 +291,17 @@ def _k2_case(rng, B, dtype, dev):
     err = max([err] + [max_abs(got[3][k], ref[3][k]) for k in got[3]])
     ms = cuda_ms(lambda: trimodal_attention(*args), iters=50)
     plain_ms = cuda_ms(lambda: trimodal_attention_plain(*args), iters=20)
-    return err, ms, plain_ms
+    # the weights and query once, each memory row below its length once
+    # (the kernel skips the rest), the contexts and maps written once
+    rows = [int(n.clamp(max=m.shape[1]).sum()) for n, m in zip(lens, mems)]
+    mem_bytes = sum(r * m.shape[2] * m.element_size()
+                    for r, m in zip(rows, mems))
+    ops = 2 * B * Dq * (Lt + 2 * La) + 2 * sum(
+        r * m.shape[2] for r, m in zip(rows, mems))
+    bnd = bound(ops, nbytes(w_t, b, q, *lens, *got[:3], got[3]["text"],
+                            got[3]["video"], got[3]["audio"]) + mem_bytes,
+                dtype)
+    return err, ms, plain_ms, bnd
 
 
 def phase_k2(card: str) -> dict:
@@ -201,16 +310,18 @@ def phase_k2(card: str) -> dict:
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         for B in (32, 128):
-            err, ms, plain_ms = _k2_case(rng, B, dtype, dev)
+            err, ms, plain_ms, bnd = _k2_case(rng, B, dtype, dev)
             log(f"K2 trimodal_attention B={B} Dq=812 L=283/101/101 "
                 f"{str(dtype)[6:]}: max|d|={err:.3e} (tol "
                 f"{K2_TOL[dtype]:.0e}) kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms [{card}]")
+                f"{plain_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}; no library call computes it) [{card}]")
             if not err <= K2_TOL[dtype]:
                 raise AssertionError(f"K2 B={B} {dtype}: max|d| {err} > "
                                      f"{K2_TOL[dtype]}")
             if dtype == torch.bfloat16 and B == 32:
-                summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           **bnd, "library_ms": None}
     return summary
 
 
@@ -248,55 +359,48 @@ def requests(mc, n: int, seed: int):
     return contexts, frames, audio
 
 
-def _encode_decode(pipe, req):
+def serving_mel(mc, pcm, audio_cap: int, dtype):
+    """The log-mel examples encode computes from ``pcm``: (B, cap, 96, 64)."""
+    return frontends.log_mel_examples(
+        pcm, sample_rate=mc.sample_rate, window=mc.stft_window,
+        hop=mc.stft_hop, mel_bins=mc.mel_bins, lower_hz=mc.mel_min_hz,
+        upper_hz=mc.mel_max_hz, log_offset=mc.log_offset,
+        frames_per_example=mc.mel_frames, max_examples=audio_cap, dtype=dtype)
+
+
+def _encode_decode(pipe, req, int8_audio: bool = False):
     """(memories, tokens, logits) of one request batch, through the same
-    functions generate() runs."""
+    functions generate() runs. ``int8_audio`` replaces the audio memory
+    with the int8 tower's, called through AudioEncoder.forward(int8=True)
+    on the pipeline's device (on the CPU too, where encode never takes
+    it)."""
     host = pipe._pack(*req)
-    mem, state = DEC.encode(pipe.model, pipe.mc, pipe._to_device(host),
-                            audio_cap=DEC.audio_bucket(pipe.mc,
-                                                       host["audio_len"]),
+    batch = pipe._to_device(host)
+    cap = DEC.audio_bucket(pipe.mc, host["audio_len"])
+    mem, state = DEC.encode(pipe.model, pipe.mc, batch, audio_cap=cap,
                             frames_cap=DEC.frames_bucket(pipe.mc,
                                                          host["frames_len"]),
                             dtype=pipe.dtype)
+    if int8_audio:
+        mel = serving_mel(pipe.mc, batch["audio_pcm"], cap, pipe.dtype)
+        enc = pipe.model.audio_enc(mel, mem.audio_len, dtype=pipe.dtype,
+                                   int8=True)
+        mem = mem._replace(enc_audio=torch.nn.functional.pad(
+            enc, (0, 0, 0, pipe.mc.av_max_length - cap)))
     toks, logits = DEC.decode_from_memories(
         pipe.model, mem, state, max_len=pipe.mc.target_steps - 1,
         dtype=pipe.dtype, return_logits=True)
     return mem, toks, logits
 
 
-def phase_main(card: str, model) -> dict:
-    mc, params, state, vocab, i2w = model
-    t0 = time.perf_counter()
-    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
-                      dtype=torch.bfloat16)
-    req = requests(mc, N_REQUESTS, SEED + 2)
-    log(f"main: QGPipeline mode={mc.mode} decoder={mc.decoder} "
-        f"video={mc.video_encoder} hidden={mc.hidden_dim} Lc="
-        f"{mc.context_max_length} av={mc.av_max_length} vocab={mc.n_vocab} "
-        f"bf16 on the card, built in {time.perf_counter() - t0:.1f} s; audio "
-        "tower: bf16 VGGish (embed_examples) -- the JAX package's int8 "
-        "serving variant (audio_int8_serving) is not ported")
-    pipe.generate(*req)                      # warm-up: cuDNN plans, caches
+def _time_serving(pipe, req):
+    """(questions/s of one generate(), median encode ms, median decode ms,
+    caps) of the request batch, each call ending in a synchronise."""
+    mc = pipe.mc
     torch.cuda.synchronize()
-
-    lstm_seq.launches = 0
-    trimodal_attention.launches = 0
     t0 = time.perf_counter()
-    questions = pipe.generate(*req, strategy="greedy")
+    pipe.generate(*req, strategy="greedy")
     wall = time.perf_counter() - t0
-    launches = {"lstm_seq": lstm_seq.launches,
-                "trimodal_attention": trimodal_attention.launches}
-    want = {"lstm_seq": mc.text_layers + 1,
-            "trimodal_attention": mc.target_steps - 1}
-    log(f"main: one generate() of {N_REQUESTS} requests launched {launches}"
-        f" (want {want}: {mc.text_layers} text layers + 1 video layer per "
-        f"encode, {mc.target_steps - 1} attention steps per decode)")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    if len(questions) != N_REQUESTS or not all(
-            isinstance(q, str) for q in questions):
-        raise AssertionError("generate() did not return one string a request")
-
     enc_ms, dec_ms = [], []
     for _ in range(3):
         host = pipe._pack(*req)
@@ -314,45 +418,114 @@ def phase_main(card: str, model) -> dict:
         torch.cuda.synchronize()
         enc_ms.append((t1 - t0) * 1e3)
         dec_ms.append((time.perf_counter() - t1) * 1e3)
+    return (len(req[0]) / wall, wall * 1e3, float(np.median(enc_ms)),
+            float(np.median(dec_ms)), caps)
+
+
+def phase_main(card: str, model) -> dict:
+    mc, params, state, vocab, i2w = model
+    t0 = time.perf_counter()
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
+                      dtype=torch.bfloat16)
+    req = requests(mc, N_REQUESTS, SEED + 2)
+    log(f"main: QGPipeline mode={mc.mode} decoder={mc.decoder} "
+        f"video={mc.video_encoder} hidden={mc.hidden_dim} Lc="
+        f"{mc.context_max_length} av={mc.av_max_length} vocab={mc.n_vocab} "
+        f"bf16 on the card, built in {time.perf_counter() - t0:.1f} s; audio "
+        f"tower: int8 VGGish (audio_int8_serving={mc.audio_int8_serving}, "
+        "conv2..conv6 through vggish_conv_int8), as the JAX package serves "
+        "off the CPU")
+    pipe.generate(*req)                      # warm-up: cuDNN plans, caches
+    torch.cuda.synchronize()
+
+    _reset_launches()
+    questions = pipe.generate(*req, strategy="greedy")
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
+                trimodal_attention=mc.target_steps - 1,
+                vggish_conv_int8=len(V.POOLS))
+    log(f"main: one generate() of {N_REQUESTS} requests launched {launches}"
+        f" (want {want}: {mc.text_layers} text layers + 1 video layer and "
+        f"{len(V.POOLS)} int8 convs per encode, {mc.target_steps - 1} "
+        "attention steps per decode)")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    if len(questions) != N_REQUESTS or not all(
+            isinstance(q, str) for q in questions):
+        raise AssertionError("generate() did not return one string a request")
+
+    # the int8 tower (the default) and the bf16 cuDNN tower, in turns
+    towers = {"int8": mc, "bf16": mc._replace(audio_int8_serving=False)}
+    pipe.mc = towers["bf16"]
+    pipe.generate(*req)                      # warm-up of the bf16 tower
+    runs = {"int8": [], "bf16": []}
+    for tower in ("int8", "bf16", "bf16", "int8"):
+        pipe.mc = towers[tower]
+        runs[tower].append(_time_serving(pipe, req))
+    pipe.mc = mc
+    for tower, rs in runs.items():
+        caps = rs[0][4]
+        log(f"main: greedy batch {N_REQUESTS}, {tower} VGGish: "
+            + ", ".join(f"{r[0]:.1f}" for r in rs) + " questions/s ("
+            + ", ".join(f"{r[1]:.1f}" for r in rs) + " ms generate(), host "
+            "packing included); encode " + ", ".join(f"{r[2]:.2f}" for r in rs)
+            + " ms, decode " + ", ".join(f"{r[3]:.2f}" for r in rs)
+            + f" ms (medians of 3; runs in the order int8, bf16, bf16, int8;"
+            f" caps audio={caps['audio_cap']} frames={caps['frames_cap']}) "
+            f"[{card}]")
+
     mem, toks, logits = _encode_decode(pipe, req)
     finite = all(bool(torch.isfinite(m).all()) for m in mem[:3])
     if not (finite and bool(torch.isfinite(logits).all())):
         raise AssertionError("non-finite memories or logits")
     if tuple(logits.shape) != (N_REQUESTS, mc.target_steps - 1, mc.n_vocab):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
-    log(f"main: greedy batch {N_REQUESTS}: {N_REQUESTS / wall:.1f} "
-        f"questions/s ({wall * 1e3:.1f} ms generate(), host packing "
-        f"included); encode {np.median(enc_ms):.2f} ms, decode "
-        f"{np.median(dec_ms):.2f} ms (median of 3, caps "
-        f"audio={caps['audio_cap']} frames={caps['frames_cap']}) [{card}]")
     log(f"main: e.g. {questions[0][:80]!r}")
     return launches
 
 
 def phase_card_vs_cpu(model) -> None:
     """The same f32 pipeline on 4 requests on the card (kernels) and on the
-    CPU (plain versions): identical greedy tokens, logits within LOGIT_TOL."""
+    CPU (plain versions), with the float audio tower on both: identical
+    greedy tokens, logits within LOGIT_TOL. Then the int8 tower on both,
+    called through AudioEncoder.forward(int8=True): identical greedy tokens,
+    logits within INT8_LOGIT_TOL."""
     mc, params, state, vocab, i2w = model
+    mc = mc._replace(audio_int8_serving=False)
     req = tuple(r[:4] for r in requests(mc, N_REQUESTS, SEED + 2))
-    out = {}
-    for device in ("cuda", "cpu"):
-        pipe = QGPipeline(None, mc, params, state, vocab, i2w, device=device,
-                          dtype=torch.float32)
-        _, toks, logits = _encode_decode(pipe, req)
-        out[device] = (toks.cpu(), logits.cpu())
-    same = torch.equal(out["cuda"][0], out["cpu"][0])
-    err = max_abs(out["cuda"][1], out["cpu"][1])
-    log(f"card vs cpu (f32, 4 requests, {mc.target_steps - 1} steps): greedy"
-        f" tokens identical={same}; logits max|d|={err:.3e} (tol "
-        f"{LOGIT_TOL:.0e})")
-    if not same or not err <= LOGIT_TOL:
-        raise AssertionError("card and CPU disagree")
+    pipes = {d: QGPipeline(None, mc, params, state, vocab, i2w, device=d,
+                           dtype=torch.float32) for d in ("cuda", "cpu")}
+    failed = []
+    for tower, tol in (("float", LOGIT_TOL), ("int8", INT8_LOGIT_TOL)):
+        out = {}
+        for device, pipe in pipes.items():
+            mem, toks, logits = _encode_decode(pipe, req,
+                                               int8_audio=tower == "int8")
+            out[device] = (toks.cpu(), logits.cpu(), mem.enc_audio.cpu())
+        same = torch.equal(out["cuda"][0], out["cpu"][0])
+        err = max_abs(out["cuda"][1], out["cpu"][1])
+        audio = max_abs(out["cuda"][2], out["cpu"][2])
+        log(f"card vs cpu (f32, {tower} VGGish, 4 requests, "
+            f"{mc.target_steps - 1} steps): greedy tokens identical={same}; "
+            f"logits max|d|={err:.3e} (tol {tol:.0e}); audio memory "
+            f"max|d|={audio:.3e} of max {float(out['cpu'][2].abs().max()):.3e}")
+        if not same or not err <= tol:
+            failed.append(tower)
+    if failed:
+        raise AssertionError(f"card and CPU disagree: {failed}")
 
 
 # f32 logits, card vs CPU: the parity contract's 1e-5. cuBLAS/cuDNN and the
 # CPU libraries sum in other orders through the VGGish stack and 283 + 21
 # recurrent steps; measured 4.8e-7 on an H100 (700 W).
 LOGIT_TOL = 1e-5
+# f32 logits, card vs CPU, int8 tower: conv1 runs through cuDNN and the CPU
+# conv, which differ in the last bit, so an example's dynamic scale (and
+# any quantized activation whose quotient sits near a half) can move by one
+# quantization step between the two; the kernel and the plain int8 conv are
+# otherwise bit-equal (phase int8).
+INT8_LOGIT_TOL = 1e-3
 
 
 # ----------------------------------------------------------------- K4 phase
@@ -426,7 +599,17 @@ def _k4_case(rng, B, T, In, H, dtype, dev):
                 iters=1, warmup=1)}
     # the backward alone: forward + backward less the forward
     times["bwd"] = cuda_ms(kernel, iters=3, warmup=1) - times["fwd"]
-    return fwd_err, grad_abs, grad_rel, times
+    # forward: K1's products, writing h, c and the gates; backward: the dh
+    # recurrence and dx, dWx, dWh over all B*T rows
+    gates = res[2]
+    lens = torch.full((B,), T, dtype=torch.int64)
+    bnds = {"fwd": bound(2 * B * T * (In + H) * 4 * H,
+                         nbytes(wx, wh, b, xs, h0, c0, *res), dtype),
+            "bwd": bound(4 * B * T * (In + H) * 4 * H,
+                         nbytes(wx, wh, xs, h0, c0, res[0], res[1], gates,
+                                *cots, *ref_grads), dtype)}
+    lib = cudnn_lstm_ms(wx, wh, b, xs, lens, dtype)
+    return fwd_err, grad_abs, grad_rel, times, bnds, lib
 
 
 def phase_k4(card: str) -> dict:
@@ -435,8 +618,8 @@ def phase_k4(card: str) -> dict:
     summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, T, In, H in K4_SHAPES:
-            fwd_err, grad_abs, grad_rel, ms = _k4_case(rng, B, T, In, H,
-                                                       dtype, dev)
+            fwd_err, grad_abs, grad_rel, ms, bnds, lib = _k4_case(
+                rng, B, T, In, H, dtype, dev)
             worst = max(grad_rel.values())
             log(f"K4 lstm_layer_train {name} B={B} T={T} In={In} H={H} "
                 f"{str(dtype)[6:]}: fwd max|d|={fwd_err:.3e} (tol "
@@ -445,16 +628,22 @@ def phase_k4(card: str) -> dict:
                 + " ".join(f"{k}={v:.2e}" for k, v in grad_rel.items())
                 + f" (tol {K4_GRAD_TOL[dtype]:.0e}); kernel fwd "
                 f"{ms['fwd']:.2f} ms bwd {ms['bwd']:.2f} ms, plain fwd "
-                f"{ms['plain_fwd']:.2f} ms bwd {ms['plain_bwd']:.2f} ms "
-                f"[{card}]")
+                f"{ms['plain_fwd']:.2f} ms bwd {ms['plain_bwd']:.2f} ms, "
+                f"cuDNN LSTM fwd {fmt_ms(lib['fwd'])} bwd "
+                f"{fmt_ms(lib['bwd'])}, bound fwd "
+                f"{bnds['fwd']['bound_ms']:.4f} ms ({bnds['fwd']['bound_by']})"
+                f" bwd {bnds['bwd']['bound_ms']:.4f} ms "
+                f"({bnds['bwd']['bound_by']}) [{card}]")
             if not (fwd_err <= K4_FWD_TOL[dtype]
                     and worst <= K4_GRAD_TOL[dtype]):
                 failures.append(f"{name} {dtype}")
             if dtype == torch.bfloat16 and name == "text layer 0":
                 summary = {"fwd": {"max_abs_err": fwd_err, "ms": ms["fwd"],
-                                   "plain_ms": ms["plain_fwd"]},
+                                   "plain_ms": ms["plain_fwd"], **bnds["fwd"],
+                                   "library_ms": lib["fwd"]},
                            "bwd": {"max_abs_err": grad_abs, "ms": ms["bwd"],
-                                   "plain_ms": ms["plain_bwd"]}}
+                                   "plain_ms": ms["plain_bwd"], **bnds["bwd"],
+                                   "library_ms": lib["bwd"]}}
     if failures:
         raise AssertionError(f"K4 kernel and plain disagree: {failures}")
     return summary
@@ -464,7 +653,8 @@ def phase_k4(card: str) -> dict:
 
 @dataclass
 class SyntheticBatch:
-    """The fields of ``mmqg_tpu.data.dataset.Batch`` that training reads."""
+    """The fields of ``mmqg_tpu_torch.data.dataset.Batch`` that training
+    reads."""
     context_ids: np.ndarray
     context_len: np.ndarray
     frames: np.ndarray
@@ -555,16 +745,24 @@ class SyntheticCorpus:
 TRAIN_BATCHES = 4     # optimizer steps of the measured epoch (>= 3)
 
 
+ZERO_LAUNCHES = {"lstm_seq": 0, "trimodal_attention": 0,
+                 "lstm_train_fwd": 0, "lstm_train_bwd": 0, "vggish_conv": 0,
+                 "vggish_conv_int8": 0}
+
+
 def _launches():
     return {"lstm_seq": lstm_seq.launches,
             "trimodal_attention": trimodal_attention.launches,
             "lstm_train_fwd": lstm_layer_train.fwd_launches,
-            "lstm_train_bwd": lstm_layer_train.bwd_launches}
+            "lstm_train_bwd": lstm_layer_train.bwd_launches,
+            "vggish_conv": V.vggish_conv.launches,
+            "vggish_conv_int8": V.conv3x3_relu_int8.launches}
 
 
 def _reset_launches() -> None:
     lstm_seq.launches = trimodal_attention.launches = 0
     lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
+    V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
 
 
 def _device_busy_ms(fn):
@@ -628,9 +826,9 @@ def phase_train(card: str, model) -> dict:
     epoch_s = time.perf_counter() - t0
     launches = _launches()
     steps = TRAIN_BATCHES
-    want = {"lstm_seq": 0, "trimodal_attention": 0,
-            "lstm_train_fwd": (mc.text_layers + 1) * steps,
-            "lstm_train_bwd": (mc.text_layers + 1) * steps}
+    want = dict(ZERO_LAUNCHES,
+                lstm_train_fwd=(mc.text_layers + 1) * steps,
+                lstm_train_bwd=(mc.text_layers + 1) * steps)
     log(f"train: run_epoch of {steps} steps launched {launches} (want "
         f"{want}: {mc.text_layers} text layers + 1 video layer, forward and "
         f"backward, per step); mean loss {loss:.4f}; {epoch_s * 1e3:.1f} ms "
@@ -717,9 +915,10 @@ def phase_train(card: str, model) -> dict:
     val = trainer.validate()
     torch.cuda.synchronize()
     val_launches = _launches()
-    val_want = {"lstm_seq": mc.text_layers + 1,
-                "trimodal_attention": mc.target_steps,
-                "lstm_train_fwd": 0, "lstm_train_bwd": 0}
+    # validation encodes as serving does: the int8 VGGish on the card
+    val_want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
+                    trimodal_attention=mc.target_steps,
+                    vggish_conv_int8=len(V.POOLS))
     log(f"train: validate() of {B} samples launched {val_launches} (want "
         f"{val_want}), loss {val['loss']:.4f} bleu {val['bleu']:.4f}, "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
@@ -882,6 +1081,200 @@ def _leaf_names(tree, path=""):
         yield path
 
 
+# --------------------------------------------------------- K3 and int8 phases
+
+# K3, max |kernel - plain| / max |plain| of the conv features: f32 differs
+# only in summation order (measured 2.4e-6 at N=64 on an H100); bf16 rounds
+# every activation to bf16 after an f32 sum taken in another order, so a
+# sum near a rounding boundary flips by one bf16 ulp (2^-8 relative) and
+# later layers carry it (measured 4.2e-3).
+K3_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def he_serving(model):
+    """A bf16 pipeline on the card with the flagship's weights but He-scaled
+    VGGish convs (``he_vggish``: with the default init six ReLU convs shrink
+    the signal ~6^6-fold and the kernels' outputs would be near zero), and
+    the serving batch's audio: (pipe, log-mel (32, E, 96, 64) f32, example
+    counts (32,)), E the audio bucket (37)."""
+    mc, params, state, vocab, i2w = model
+    pipe = QGPipeline(None, mc, he_vggish(params), state, vocab, i2w,
+                      device="cuda", dtype=torch.bfloat16)
+    req = requests(mc, N_REQUESTS, SEED + 2)
+    host = pipe._pack(*req)
+    cap = DEC.audio_bucket(mc, host["audio_len"])
+    batch = pipe._to_device(host)
+    mel = serving_mel(mc, batch["audio_pcm"], cap, torch.float32)
+    lens = torch.clamp(frontends.audio_num_examples(
+        batch["audio_len"], hop=mc.stft_hop, window=mc.stft_window,
+        frames_per_example=mc.mel_frames, max_examples=cap), min=1)
+    return pipe, req, mel, lens
+
+
+def _conv_ops(x1, convs) -> int:
+    """Multiply-adds x 2 of conv2..conv6 on ``x1 (N, 48, 32, 64)``."""
+    N, H, W, _ = x1.shape
+    ops = 0
+    for c, pool in zip(convs[1:], V.POOLS):
+        ops += 2 * N * H * W * c.w[0, 0].numel() * 9
+        if pool:
+            H, W = H // 2, W // 2
+    return ops
+
+
+def phase_k3(card: str, serving) -> dict:
+    pipe, _, mel, lens = serving
+    convs = pipe.model.audio_enc.convs
+    flat = mel.reshape((-1,) + mel.shape[2:])
+    N = flat.shape[0]
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x1 = V.conv1_pool(convs, flat, dtype)
+
+        def stack(conv):
+            x = x1
+            for c, pool in zip(convs[1:], V.POOLS):
+                x = conv(x, c.w, c.b, pool=pool, dtype=dtype)
+            return x
+
+        def library():   # cuDNN conv2..conv6 (the port's training tower)
+            x = x1
+            for c, pool in zip(convs[1:], V.POOLS):
+                x = torch.relu(L.conv2d(x, c.w, c.b, padding="SAME",
+                                        dtype=dtype, out_dtype=dtype))
+                if pool:
+                    x = L.maxpool2d(x, 2)
+            return x
+
+        got = stack(V.vggish_conv)
+        ref = stack(V.vggish_conv_plain)
+        torch.cuda.synchronize()
+        err = max_abs(got, ref)
+        scale = float(ref.float().abs().max())
+        ms = cuda_ms(lambda: stack(V.vggish_conv), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: stack(V.vggish_conv_plain), iters=1,
+                           warmup=1)
+        lib_ms = cuda_ms(library, iters=3, warmup=1)
+        weights = [t for c in convs[1:] for t in (c.w.to(dtype), c.b)]
+        bnd = bound(_conv_ops(x1, convs), nbytes(x1, *weights, got), dtype)
+        log(f"K3 vggish_conv conv2..conv6 N={N} (32 requests x audio bucket "
+            f"{mel.shape[1]}) {str(dtype)[6:]}: max|d|={err:.3e} of max "
+            f"{scale:.3e} (tol {K3_RTOL[dtype]:.0e} of max) kernel {ms:.2f} "
+            f"ms plain {plain_ms:.2f} ms cuDNN {lib_ms:.2f} ms bound "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) [{card}]")
+        if not (scale > 0 and err <= K3_RTOL[dtype] * scale):
+            raise AssertionError(f"K3 {dtype}: max|d| {err} > "
+                                 f"{K3_RTOL[dtype]} x {scale}")
+        if dtype == torch.bfloat16:
+            summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bnd, "library_ms": lib_ms}
+
+    # the K3 path: the audio tower with use_kernel=True
+    _reset_launches()
+    emb = pipe.model.audio_enc(mel, lens, dtype=torch.bfloat16,
+                               use_kernel=True)
+    torch.cuda.synchronize()
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES, vggish_conv=len(V.POOLS))
+    flt = pipe.model.audio_enc(mel, lens, dtype=torch.bfloat16)
+    rel = max_abs(emb, flt) / float(flt.abs().max())
+    log(f"K3 path: AudioEncoder.forward(use_kernel=True) on {tuple(mel.shape)}"
+        f" bf16 launched {launches} (want {want}); embeddings vs the cuDNN "
+        f"tower max|d|/max {rel:.3e} (tol {K3_RTOL[torch.bfloat16]:.0e})")
+    if launches != want or not rel <= K3_RTOL[torch.bfloat16] or not bool(
+            torch.isfinite(emb).all()):
+        raise AssertionError("the K3 path failed")
+    return dict(summary, launches=launches["vggish_conv"])
+
+
+def phase_int8(card: str, serving) -> dict:
+    """vggish_conv_int8 vs its plain version on the serving batch's
+    quantized activations, layer by layer (bf16 out, as served), with
+    dynamic and with calibrated static scales. Both sum exactly and apply
+    the same f32 epilogue, so max |d| must be 0; a nonzero one prints its
+    witness."""
+    pipe, _, mel, _ = serving
+    enc = pipe.model.audio_enc
+    flat = mel.reshape((-1,) + mel.shape[2:])
+    dtype = torch.bfloat16
+    scales = enc.calibrate_int8_scales(flat)
+    x1 = V.conv1_pool(enc.convs, flat, dtype)
+    worst, ms, plain_ms, ops, nb = 0.0, 0.0, 0.0, 0, 0
+    for mode, sc in (("dynamic", (None,) * len(V.POOLS)), ("static", scales)):
+        x = x1
+        for i, (c, pool) in enumerate(zip(enc.convs[1:], V.POOLS)):
+            wq, sw = V.quantize_weights(c.w)
+            xq, sx = V.quantize_activations(x, sc[i])
+            args = (xq, wq, sx, sw, c.b)
+            got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
+            ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
+            torch.cuda.synchronize()
+            d = (got.float() - ref.float()).abs()
+            err = float(d.max())
+            worst = max(worst, err)
+            line = (f"int8 vggish_conv_int8 conv{i + 2} {tuple(xq.shape)} -> "
+                    f"{c.w.shape[-1]} pool={pool} {mode} scales: max|d|="
+                    f"{err:.3e} (want 0) of max {float(ref.float().abs().max()):.3e}")
+            if err > 0:
+                at = np.unravel_index(int(d.argmax()), d.shape)
+                line += (f"; witness at {tuple(int(a) for a in at)}: kernel "
+                         f"{float(got[at])!r} plain {float(ref[at])!r}")
+            if mode == "dynamic":
+                k = cuda_ms(lambda: V.conv3x3_relu_int8(*args, pool=pool,
+                                                        dtype=dtype),
+                            iters=3, warmup=1)
+                p = cuda_ms(lambda: V.conv3x3_relu_int8_plain(
+                    *args, pool=pool, dtype=dtype), iters=1, warmup=1)
+                ms, plain_ms = ms + k, plain_ms + p
+                N, H, W, Cin = xq.shape
+                ops += 2 * N * H * W * 9 * Cin * c.w.shape[-1]
+                nb += nbytes(*args, got)
+                line += f"; kernel {k:.2f} ms plain {p:.2f} ms"
+            log(f"{line} [{card}]")
+            x = ref
+    bnd = bound(ops, nb, torch.int8)
+    log(f"int8 conv2..conv6 (dynamic): kernel {ms:.2f} ms plain {plain_ms:.2f}"
+        f" ms bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); no PyTorch "
+        f"call runs an int8 conv on CUDA; static scales {scales} [{card}]")
+    if worst != 0.0:
+        raise AssertionError(f"vggish_conv_int8 and its plain version differ"
+                             f" by {worst}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
+
+
+def phase_calibrate(card: str, serving) -> None:
+    """calibrate_audio_int8 on the card, then one greedy generate() served
+    with the static scales through the int8 kernel."""
+    pipe, req, _, _ = serving
+    mc = pipe.mc
+    t0 = time.perf_counter()
+    pipe.calibrate_audio_int8(req[2])
+    torch.cuda.synchronize()
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    scales = pipe.mc.audio_int8_scales
+    if not (scales and len(scales) == len(V.POOLS) and all(
+            np.isfinite(s) and s > 0 for s in scales)):
+        raise AssertionError(f"calibration gave scales {scales}")
+    pipe.generate(*req)                      # warm-up
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    questions = pipe.generate(*req)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
+                trimodal_attention=mc.target_steps - 1,
+                vggish_conv_int8=len(V.POOLS))
+    log(f"calibrate: calibrate_audio_int8 on {len(req[2])} clips in "
+        f"{cal_ms:.1f} ms, static scales {tuple(f'{s:.4g}' for s in scales)}"
+        f"; one greedy generate() with them launched {launches} (want "
+        f"{want}), {len(req[0]) / wall:.1f} questions/s [{card}]")
+    if launches != want or len(questions) != len(req[0]):
+        raise AssertionError("the calibrated int8 serving path failed")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -893,8 +1286,14 @@ def main() -> None:
     phase_card_vs_cpu(model)
     train_launches = phase_train(dev["card"], model)
     phase_train_card_vs_cpu(model)
-    if "jax" in sys.modules:
-        raise AssertionError("a jax module was imported")
+    serving = he_serving(model)
+    k3 = phase_k3(dev["card"], serving)
+    int8 = phase_int8(dev["card"], serving)
+    phase_calibrate(dev["card"], serving)
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu")]
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
@@ -911,7 +1310,14 @@ def main() -> None:
         {"name": "lstm_train_bwd", "route": "cuda",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:209",
-         "launches": train_launches["lstm_train_bwd"], **k4["bwd"]}]
+         "launches": train_launches["lstm_train_bwd"], **k4["bwd"]},
+        {"name": "vggish_conv", "route": "cuda",
+         "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
+         "replaces": "mmqg_tpu/ops/vggish_pallas.py:137", **k3},
+        {"name": "vggish_conv_int8", "route": "cuda",
+         "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
+         "replaces": "mmqg_tpu/models/audio_encoder.py:157",
+         "launches": launches["vggish_conv_int8"], **int8}]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -2,26 +2,36 @@
 
 A port of ``mmqg_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100, beside
 the JAX package, which stays the reference it is tested against. It keeps
-the JAX package's module layout and its parameter layouts and imports no
-``jax``. The serving path imports nothing of ``mmqg_tpu``; the trainer
-imports its JAX-free ``Config``, ``QGDataset``, BLEU metrics and
-pipelining helper. It runs the greedy serving path and training:
+the JAX package's module layout and its parameter layouts, and imports
+neither ``jax`` nor anything of ``mmqg_tpu``: what it needs of the JAX
+package's JAX-free modules (``Config``, ``QGDataset``, BLEU, the
+pipelining helper) it keeps as its own copies. It runs the greedy serving
+path, with the int8 VGGish audio tower on the card as the JAX package
+serves off the CPU, and training:
 
     QGPipeline(...).generate(contexts, frames, audio, strategy="greedy")
     python -m mmqg_tpu_torch.train -c config.json [--device cpu]
 
 Layout:
-  pipeline.py       QGPipeline: pack requests, encode, decode, detokenise
+  pipeline.py       QGPipeline: pack requests, encode, decode, detokenise;
+                    calibrate_audio_int8 (static int8 audio scales)
   decode.py         AV buckets, greedy decode_from_memories, decode_batch
   train.py          train and validate steps, Trainer, the training CLI
   optim.py          optax's optimizers and schedules, in optax's state layout
   checkpoint.py     reads and writes the JAX package's msgpack checkpoints
+  config.py         Config with the JAX package's config.json round trip
+  metrics.py        BLEU suite (standard and reference-compat)
+  data/             vocab ids, WAV reading, QGDataset batches
+  utils/            pipelined host loops
   compat/from_jax   JAX train-state pytree (numpy leaves) <-> modules
   models/           layers, text/video/audio encoders, decoder, encode, loss
   ops/lstm.py       K1: LSTM sequence, CUDA kernel + plain version
   ops/attention.py  K2: tri-modal attention, CUDA kernel + plain version
   ops/lstm_train.py K4: trainable LSTM layer, CUDA forward and backward
                     kernels + plain versions, as an autograd Function
+  ops/vggish.py     K3: VGGish conv2..conv6, and the int8 conv of the
+                    serving audio tower, one CUDA kernel design + plain
+                    versions
   ops/_build.py     nvcc build of csrc/*.cu into one ctypes library
   csrc/             the hand-written CUDA C++ kernels (sm_90a)
 

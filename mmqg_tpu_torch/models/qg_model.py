@@ -59,14 +59,15 @@ class ModelConfig(NamedTuple):
     normalize_video: bool = True
     vid_mean: Tuple[float, float, float] = (0.43216, 0.394666, 0.37645)
     vid_std: Tuple[float, float, float] = (0.22803, 0.22145, 0.216989)
-    # the port serves the bf16 VGGish whatever this says (see audio_encoder)
+    # off the CPU, serving (train=False) runs the int8 VGGish (encode)
     audio_int8_serving: bool = True
     audio_int8_scales: Optional[Tuple[float, ...]] = None
 
     @classmethod
     def from_config(cls, config, n_vocab: int, mode: str = "trimodal",
                     dec: str = "attn") -> "ModelConfig":
-        """From an ``mmqg_tpu.config.Config`` (read by attribute only), with
+        """From a ``Config`` (``mmqg_tpu_torch.config``, or any object with
+        its fields: it is read by attribute only), with
         the JAX package's checks."""
         if config.dec_lstm_hidden_dim != config.text_lstm_hidden_dim:
             raise ValueError(
@@ -263,8 +264,10 @@ def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
 
     ``audio_cap``/``frames_cap`` bound the AV steps the encoders run; the
     memories are zero-padded back to ``av_max_length``, because the
-    attention weights are sized for it. The audio tower is the bf16 VGGish
-    (``embed_examples``), not the JAX package's int8 serving variant.
+    attention weights are sized for it. The audio tower is the int8 VGGish
+    (``embed_examples_int8``, with ``mc.audio_int8_scales`` when calibrated)
+    where the JAX package takes it: ``mc.audio_int8_serving``, not
+    training, and not on the CPU; otherwise ``embed_examples`` in ``dtype``.
 
     ``train`` runs the trainable path: the text and video LSTMs through K4,
     text dropout from ``generator``, and batchnorm over the valid frames.
@@ -312,7 +315,11 @@ def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
     audio_len = torch.clamp(frontends.audio_num_examples(
         batch["audio_len"], hop=mc.stft_hop, window=mc.stft_window,
         frames_per_example=mc.mel_frames, max_examples=cap), min=1)
-    enc_audio = model.audio_enc(mel, audio_len, dtype=dtype)
+    enc_audio = model.audio_enc(
+        mel, audio_len, dtype=dtype,
+        int8=(mc.audio_int8_serving and not train
+              and mel.device.type != "cpu"),
+        int8_scales=mc.audio_int8_scales)
     enc_audio = torch.nn.functional.pad(enc_audio, (0, 0, 0, av - cap))
 
     mem = Memories(enc_text=enc_text, enc_video=enc_video,

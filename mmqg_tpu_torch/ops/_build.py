@@ -2,7 +2,9 @@
 
 The sources under ``mmqg_tpu_torch/csrc/`` have a plain C interface, so they
 compile with ``nvcc`` alone (seconds) into ``libmmqg_kernels.so`` and load
-with ``ctypes`` -- no PyTorch headers, no extension build. The library goes
+with ``ctypes`` -- no PyTorch headers, no extension build. Each ``.cu`` file
+compiles in its own ``nvcc`` process, all started together, and one more
+links the objects. The library goes
 under ``mmqg_tpu_torch/build/<hash of the sources and flags>/`` at first
 use, so an edited source rebuilds and an unchanged one is reused. There is
 no fallback: without ``nvcc`` the build raises.
@@ -24,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their argument types: every pointer and the stream are
@@ -34,6 +36,8 @@ SIGNATURES = {
     "mmqg_trimodal_attention": [_P] * 13 + [_I] * 8 + [_P],
     "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 5 + [_P],
     "mmqg_lstm_train_bwd": [_P] * 17 + [_I] * 5 + [_P],
+    "mmqg_vggish_conv": [_P] * 4 + [_I] * 7 + [_P],
+    "mmqg_vggish_conv_int8": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -79,18 +83,30 @@ def build() -> Build:
         return _build
     nvcc = nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        objs.append(str(work / f"{src.stem}.o"))
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    log = "".join(out for out, _ in outs)
+    rc = next((code for _, code in outs if code != 0), 0)
+    if rc == 0:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                               str(work / lib.name), *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        rc = link.returncode
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    if rc != 0:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
+    # atomic: a concurrent build never sees half a file
+    os.replace(work / lib.name, lib)
+    shutil.rmtree(work, ignore_errors=True)
     _build = Build(lib, seconds, log)
     return _build
 

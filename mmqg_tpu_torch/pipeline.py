@@ -26,7 +26,7 @@ from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.data.vocab import pad_to
-from mmqg_tpu_torch.models import qg_model
+from mmqg_tpu_torch.models import frontends, qg_model
 
 
 class QGPipeline:
@@ -142,6 +142,25 @@ class QGPipeline:
                 s = min(a_lens[i], s_need)
                 batch["audio_pcm"][i, :s] = pcms[i][:s]
         return batch
+
+    def calibrate_audio_int8(self, audio: Sequence[np.ndarray],
+                             margin: float = 1.1) -> "QGPipeline":
+        """Post-training int8 calibration on representative audio clips
+        (the JAX pipeline's): static per-layer activation scales from the
+        f32 conv stack (``AudioEncoder.calibrate_int8_scales``), kept in
+        ``self.mc.audio_int8_scales`` for serving. Returns self."""
+        mc = self.mc
+        batch = self._pack([""] * len(audio), None, list(audio))
+        pcm = torch.from_numpy(batch["audio_pcm"]).to(self.device)
+        mel = frontends.log_mel_examples(
+            pcm, sample_rate=mc.sample_rate, window=mc.stft_window,
+            hop=mc.stft_hop, mel_bins=mc.mel_bins,
+            frames_per_example=mc.mel_frames,
+            max_examples=mc.av_max_length, dtype=torch.float32)
+        scales = self.model.audio_enc.calibrate_int8_scales(
+            mel.reshape((-1,) + mel.shape[2:]), margin=margin)
+        self.mc = mc._replace(audio_int8_scales=scales)
+        return self
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         keys = ("context_ids", "context_len", "frames", "frames_len",

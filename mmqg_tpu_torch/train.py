@@ -12,8 +12,9 @@ JAX package's msgpack train state, so each package resumes the other's.
 
 The JAX Trainer's mesh, multihost, streaming, profile, nan-debug,
 compile-cache, orbax and asynchronous-checkpoint options are not ported
-(ROADMAP queue 1, items 19, 21, 22 and 23). The dataset and the config are
-the JAX package's own JAX-free ``QGDataset`` and ``Config``.
+(ROADMAP queue 1, items 19, 21, 22 and 23). ``Config``, ``QGDataset``, BLEU
+and the pipelining helper are the port's own copies of the JAX package's
+modules; either package's ``config.json`` loads.
 """
 
 from __future__ import annotations
@@ -30,20 +31,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mmqg_tpu import metrics as M
-from mmqg_tpu.config import Config
-from mmqg_tpu.data.dataset import Batch, QGDataset
-from mmqg_tpu.utils.pipelining import pipelined
 from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch import decode as DEC
+from mmqg_tpu_torch import metrics as M
 from mmqg_tpu_torch.compat.from_jax import (load_train_state,
                                             params_from_numpy,
                                             train_state_to_numpy)
+from mmqg_tpu_torch.config import Config
+from mmqg_tpu_torch.data.dataset import Batch, QGDataset
 from mmqg_tpu_torch.data.vocab import START_ID
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.optim import (Transform, apply_updates, global_norm,
                                   learning_rate_schedule, make_optimizer,
                                   tree_leaves, tree_map)
+from mmqg_tpu_torch.utils.pipelining import pipelined
 
 Tensor = torch.Tensor
 

@@ -81,6 +81,43 @@ def test_main_path_rehearsal_on_cpu():
     np.testing.assert_array_equal(mem.text_len.numpy()[3:], 1)
 
 
+def test_int8_card_vs_cpu_driving_rehearsal_on_cpu():
+    """Phase 6's int8 comparison on the CPU at tiny widths: the audio
+    memory comes from AudioEncoder.forward(int8=True) (the plain int8 conv
+    here), replaces the float tower's, and the decode runs on it."""
+    mc, params, state, i2w = _tiny_train_model()
+    mc = mc._replace(audio_int8_serving=False)
+    vocab = {w: int(i) for i, w in i2w.items()}
+    params = chip_smoke.he_vggish(params)
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w,
+                      dtype=torch.float32)
+    req = chip_smoke.requests(mc, 3, seed=5)
+    mem_f, _, _ = chip_smoke._encode_decode(pipe, req)
+    chip_smoke._reset_launches()
+    mem_q, toks, logits = chip_smoke._encode_decode(pipe, req,
+                                                    int8_audio=True)
+    assert set(chip_smoke._launches().values()) == {0}
+    again = chip_smoke._encode_decode(pipe, req, int8_audio=True)
+    assert torch.equal(again[1], toks) and torch.equal(again[2], logits)
+    assert bool(torch.isfinite(logits).all())
+    assert mem_q.enc_audio.shape == mem_f.enc_audio.shape
+    assert not torch.equal(mem_q.enc_audio, mem_f.enc_audio)
+    torch.testing.assert_close(mem_q.enc_text, mem_f.enc_text)
+    # zero past each row's example count
+    past = (torch.arange(mc.av_max_length)[None, :]
+            >= mem_q.audio_len[:, None])
+    assert bool(past.any()) and not bool(mem_q.enc_audio[past].any())
+
+
+def test_bound_is_the_larger_of_operations_and_bytes():
+    b = chip_smoke.bound(989e12, 0, torch.bfloat16)
+    assert b == {"bound_ms": 1000.0, "bound_by": "operations"}
+    b = chip_smoke.bound(1979e9, 3.35e12, torch.int8)
+    assert b == {"bound_ms": 1000.0, "bound_by": "bytes"}
+    assert chip_smoke.nbytes(torch.zeros(3, 4), torch.zeros(
+        5, dtype=torch.int8)) == 53
+
+
 def _tiny_train_model():
     mc = ModelConfig(n_vocab=50, word_emb_dim=8, hidden_dim=16, text_layers=2,
                      dec_layers=2, video_hidden_dim=16, audio_emb_dim=8,

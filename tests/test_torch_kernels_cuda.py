@@ -17,6 +17,9 @@ from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
 from mmqg_tpu_torch.ops.lstm_train import (lstm_layer_train,
                                            lstm_train_bwd_plain,
                                            lstm_train_fwd_plain)
+from mmqg_tpu_torch.models import layers as L
+from mmqg_tpu_torch.models.audio_encoder import BLOCKS
+from mmqg_tpu_torch.ops import vggish as V
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +155,93 @@ def test_lstm_layer_train_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="compute dtype"):
         lstm_layer_train(wx[:, :32], wh[:8, :32], b[:32], xs,
                          z[:, :8], z[:, :8], torch.float16)
+
+
+# K3, max |kernel - plain| / max |plain|: f32 differs only in summation
+# order; bf16 rounds every activation, so an order-induced flip moves one
+# value by a bf16 ulp and later layers carry it (see chip_smoke.K3_RTOL)
+K3_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _vggish_convs(dev, seed=0):
+    """VGGish's six convs at full width, He-scaled so the signal lasts."""
+    rng = np.random.RandomState(seed)
+    convs, c_in = [], 1
+    for c_out, reps in BLOCKS:
+        for _ in range(reps):
+            w = rng.randn(3, 3, c_in, c_out) * np.sqrt(2.0 / (9 * c_in))
+            convs.append(L.Conv2d(
+                torch.from_numpy(w.astype(np.float32)).to(dev),
+                torch.from_numpy((rng.randn(c_out) * 0.05).astype(
+                    np.float32)).to(dev)))
+            c_in = c_out
+    return convs
+
+
+@pytest.mark.parametrize("dtype,N", [(torch.float32, 3),
+                                     (torch.bfloat16, 3), (torch.float32, 1)])
+def test_vggish_features_kernel_matches_plain(dev, dtype, N):
+    convs = _vggish_convs(dev)
+    mel = torch.from_numpy((np.random.RandomState(N).randn(N, 96, 64) * 2
+                            ).astype(np.float32)).to(dev)
+    before = V.vggish_conv.launches
+    got = V.vggish_features(convs, mel, dtype=dtype)
+    assert V.vggish_conv.launches == before + 5
+    ref = V.vggish_features_plain(convs, mel, dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (N, 12288) and got.dtype == torch.float32
+    scale = float(ref.abs().max())
+    assert scale > 1.0
+    assert float((got - ref).abs().max()) <= K3_RTOL[dtype] * scale
+
+
+def _int8_layer_args(dev, N=3, H=12, W=10, Cin=64, Cout=256, static=False):
+    """Ragged sizes: W=10 is not a multiple of the kernel's 8-wide tile."""
+    rng = np.random.RandomState(H * W + Cin)
+    x = torch.from_numpy(np.maximum(rng.randn(N, H, W, Cin), 0).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(3, 3, Cin, Cout) * 0.05).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy((rng.randn(Cout) * 0.1).astype(np.float32)).to(dev)
+    wq, sw = V.quantize_weights(w)
+    xq, sx = V.quantize_activations(x, 0.02 if static else None)
+    return xq, wq, sx, sw, b
+
+
+@pytest.mark.parametrize("pool,dtype,static",
+                         [(True, torch.bfloat16, False),
+                          (False, torch.float32, True),
+                          (True, torch.float32, False)])
+def test_vggish_conv_int8_kernel_matches_plain_exactly(dev, pool, dtype,
+                                                       static):
+    args = _int8_layer_args(dev, static=static)
+    before = V.conv3x3_relu_int8.launches
+    got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
+    assert V.conv3x3_relu_int8.launches == before + 1
+    ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(got, ref)
+
+
+def test_vggish_kernels_reject_what_they_cannot_take(dev):
+    xq, wq, sx, sw, b = _int8_layer_args(dev, Cin=64, Cout=256)
+    with pytest.raises(ValueError, match="Cout % 128"):
+        V.conv3x3_relu_int8(xq, wq[..., :64].contiguous(), sx, sw[:64],
+                            b[:64], pool=False)
+    with pytest.raises(ValueError, match="Cin % 32"):
+        V.conv3x3_relu_int8(xq[..., :48].contiguous(),
+                            wq[:, :, :48].contiguous(), sx, sw, b, pool=False)
+    with pytest.raises(ValueError, match="sx"):
+        V.conv3x3_relu_int8(xq, wq, sx.double(), sw, b, pool=False)
+    with pytest.raises(ValueError, match="even H and W"):
+        V.conv3x3_relu_int8(xq[:, :, :9].contiguous(), wq, sx, sw, b,
+                            pool=True)
+    x = torch.zeros(2, 8, 8, 64, device=dev)
+    w = torch.zeros(3, 3, 64, 128, device=dev)
+    with pytest.raises(ValueError, match="x is"):
+        V.vggish_conv(x, w, b[:128], pool=True, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        V.vggish_conv(x.transpose(1, 2), w, b[:128], pool=True,
+                      dtype=torch.float32)
