@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
 7. K4       lstm_layer_train forward + backward kernels vs their plain
-            versions at the encoders' shapes, f32 and bf16, with times
+            versions at the encoders' shapes and one edge case (B=5, T=1),
+            f32 and bf16, with times; the backward's sweep route must be
+            the persistent one at the encoders' shapes
 8. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
             on a synthetic in-memory corpus: K4 must launch 4x forward and
             4x backward per step, K1/K2 none; one step timed and profiled
@@ -26,7 +28,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             and the updated parameters within stated tolerances
 10. K3      vggish_conv kernel vs its plain version on the serving batch's
             1184 examples of 96 x 64 log-mel, f32 and bf16, with the cuDNN
-            conv2..conv6 stack timed beside it; then the K3 path,
+            conv2..conv6 stack timed beside it, and in bf16 at two ragged
+            sizes (1 and 37 examples); then the K3 path,
             AudioEncoder.forward(use_kernel=True), must launch it 5x
 11. int8    vggish_conv_int8 vs its plain version on the same batch's
             quantized inputs, each of the five layers, dynamic and static
@@ -42,9 +45,9 @@ AudioEncoder.forward(int8=True): identical greedy tokens, logits within a
 stated tolerance.
 
 The line before the last is the kernels' JSON summary (each kernel's
-launches on its path, max |kernel - plain|, its ms, the plain version's,
-its bound on the H100 and what bounds it, and one library call's ms where
-one computes the same function); the last line is ``{"ok": true, "device":
+design, launches on its path, max |kernel - plain|, its ms, the plain
+version's, its bound on the H100 and what bounds it, and one library call's
+ms where one computes the same function); the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports nothing of JAX and nothing of the JAX package
 ``mmqg_tpu``, and checks at the end that no such module was loaded.
@@ -533,6 +536,9 @@ INT8_LOGIT_TOL = 1e-3
 K4_SHAPES = (("text layer 0", 32, 283, 300, 512),
              ("text layer 1", 32, 283, 512, 512),
              ("video", 32, 101, 1000, 512))
+# the edges of the sweep's grid barrier (one step) and of the GEMM tiles
+# (5 rows, In = 300): checked, not timed against the path
+K4_EDGE = ("edge", 5, 1, 300, 512)
 # max |kernel - plain| of the forward outputs (h and c sequences, hT, cT),
 # as K1: f32 differs only in summation order; bf16 rounds h before every
 # Wh product, so an order-induced rounding flip moves h by a bf16 ulp and
@@ -617,16 +623,21 @@ def phase_k4(card: str) -> dict:
     dev = torch.device("cuda")
     summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, T, In, H in K4_SHAPES:
+        for name, B, T, In, H in K4_SHAPES + (K4_EDGE,):
+            before = dict(lstm_layer_train.bwd_routes)
             fwd_err, grad_abs, grad_rel, ms, bnds, lib = _k4_case(
                 rng, B, T, In, H, dtype, dev)
+            routes = {k: v - before[k]
+                      for k, v in lstm_layer_train.bwd_routes.items()}
+            route = ",".join(k for k, v in routes.items() if v)
             worst = max(grad_rel.values())
             log(f"K4 lstm_layer_train {name} B={B} T={T} In={In} H={H} "
                 f"{str(dtype)[6:]}: fwd max|d|={fwd_err:.3e} (tol "
                 f"{K4_FWD_TOL[dtype]:.0e}); grads max|d|={grad_abs:.3e}, "
                 f"max|d|/max|plain| "
                 + " ".join(f"{k}={v:.2e}" for k, v in grad_rel.items())
-                + f" (tol {K4_GRAD_TOL[dtype]:.0e}); kernel fwd "
+                + f" (tol {K4_GRAD_TOL[dtype]:.0e}); backward route {route};"
+                f" kernel fwd "
                 f"{ms['fwd']:.2f} ms bwd {ms['bwd']:.2f} ms, plain fwd "
                 f"{ms['plain_fwd']:.2f} ms bwd {ms['plain_bwd']:.2f} ms, "
                 f"cuDNN LSTM fwd {fmt_ms(lib['fwd'])} bwd "
@@ -637,6 +648,8 @@ def phase_k4(card: str) -> dict:
             if not (fwd_err <= K4_FWD_TOL[dtype]
                     and worst <= K4_GRAD_TOL[dtype]):
                 failures.append(f"{name} {dtype}")
+            if route != "persistent":
+                failures.append(f"{name} {dtype}: backward route {routes}")
             if dtype == torch.bfloat16 and name == "text layer 0":
                 summary = {"fwd": {"max_abs_err": fwd_err, "ms": ms["fwd"],
                                    "plain_ms": ms["plain_fwd"], **bnds["fwd"],
@@ -644,6 +657,7 @@ def phase_k4(card: str) -> dict:
                            "bwd": {"max_abs_err": grad_abs, "ms": ms["bwd"],
                                    "plain_ms": ms["plain_bwd"], **bnds["bwd"],
                                    "library_ms": lib["bwd"]}}
+    log(f"K4 backward routes over the phase: {lstm_layer_train.bwd_routes}")
     if failures:
         raise AssertionError(f"K4 kernel and plain disagree: {failures}")
     return summary
@@ -743,6 +757,18 @@ class SyntheticCorpus:
 
 
 TRAIN_BATCHES = 4     # optimizer steps of the measured epoch (>= 3)
+# csrc/lstm_train.cu's kernels by direction, as the profiler names them
+# (gemm_kernel is the forward's input projection in bf16 training)
+K4_PROFILE_KERNELS = {
+    "forward": ("::fwd_step_kernel<", "::gemm_kernel<"),
+    "backward": ("::bwd_sweep_kernel<", "::bwd_step_kernel<",
+                 "::tc_gemm_kernel<", "::colsum_kernel(")}
+# one train step of this phase with K4's backward as first written (one
+# launch a step, SIMT gradient GEMMs), ten runs on an NVIDIA H100 80GB HBM3
+# at 700 W: printed beside this run's numbers
+EARLIER_TRAIN_STEP = ("one step 268.8-365.4 ms (median of 3), device busy "
+                      "208.8-210.7 ms, idle share 0.415-0.654 [NVIDIA H100 "
+                      "80GB HBM3, 700.00 W]")
 
 
 ZERO_LAUNCHES = {"lstm_seq": 0, "trimodal_attention": 0,
@@ -762,6 +788,7 @@ def _launches():
 def _reset_launches() -> None:
     lstm_seq.launches = trimodal_attention.launches = 0
     lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
+    lstm_layer_train.bwd_routes = {k: 0 for k in lstm_layer_train.bwd_routes}
     V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
 
 
@@ -836,6 +863,10 @@ def phase_train(card: str, model) -> dict:
         f"warm-up epoch, their host-to-device copies are included) [{card}]")
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
+    routes = dict(lstm_layer_train.bwd_routes)
+    log(f"train: K4 backward routes {routes} (want all persistent)")
+    if routes["persistent"] != want["lstm_train_bwd"]:
+        raise AssertionError(f"K4 backward routes {routes}")
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite training loss {loss}")
 
@@ -904,11 +935,19 @@ def phase_train(card: str, model) -> dict:
         f", grad norm {norm:.4f}; profiled step wall {wall:.1f} ms, device "
         f"busy {'not measured' if busy is None else f'{busy:.1f} ms'}, "
         f"idle share {idle} [{card}]")
+    log(f"train: the earlier design (one launch a step of K4's backward "
+        f"sweep, SIMT gradient GEMMs) read {EARLIER_TRAIN_STEP}")
     if busy is not None:
-        top = prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=12)
+        averages = prof.key_averages()
+        top = averages.table(sort_by="self_device_time_total", row_limit=12)
         for line in top.splitlines():
             log(f"  {line}")
+        k4 = {part: sum(e.self_device_time_total for e in averages
+                        if any(k in e.key for k in kernels)) / 1e3
+              for part, kernels in K4_PROFILE_KERNELS.items()}
+        log(f"train: K4 kernels in the profiled step: forward "
+            f"{k4['forward']:.1f} ms, backward {k4['backward']:.1f} ms of "
+            f"{busy:.1f} ms device busy [{card}]")
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -1122,6 +1161,25 @@ def _conv_ops(x1, convs) -> int:
     return ops
 
 
+def _k3_stack(convs, x1, conv, dtype):
+    """conv2..conv6 over ``x1 (N, 48, 32, 64)`` through ``conv``."""
+    x = x1
+    for c, pool in zip(convs[1:], V.POOLS):
+        x = conv(x, c.w, c.b, pool=pool, dtype=dtype)
+    return x
+
+
+def _k3_check(what: str, got, ref, dtype) -> tuple:
+    """(max |d|, max |plain|); raises beyond K3_RTOL of the max."""
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    scale = float(ref.float().abs().max())
+    if not (scale > 0 and err <= K3_RTOL[dtype] * scale):
+        raise AssertionError(f"K3 {what} {dtype}: max|d| {err} > "
+                             f"{K3_RTOL[dtype]} x {scale}")
+    return err, scale
+
+
 def phase_k3(card: str, serving) -> dict:
     pipe, _, mel, lens = serving
     convs = pipe.model.audio_enc.convs
@@ -1130,12 +1188,6 @@ def phase_k3(card: str, serving) -> dict:
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         x1 = V.conv1_pool(convs, flat, dtype)
-
-        def stack(conv):
-            x = x1
-            for c, pool in zip(convs[1:], V.POOLS):
-                x = conv(x, c.w, c.b, pool=pool, dtype=dtype)
-            return x
 
         def library():   # cuDNN conv2..conv6 (the port's training tower)
             x = x1
@@ -1146,14 +1198,13 @@ def phase_k3(card: str, serving) -> dict:
                     x = L.maxpool2d(x, 2)
             return x
 
-        got = stack(V.vggish_conv)
-        ref = stack(V.vggish_conv_plain)
-        torch.cuda.synchronize()
-        err = max_abs(got, ref)
-        scale = float(ref.float().abs().max())
-        ms = cuda_ms(lambda: stack(V.vggish_conv), iters=3, warmup=1)
-        plain_ms = cuda_ms(lambda: stack(V.vggish_conv_plain), iters=1,
-                           warmup=1)
+        got = _k3_stack(convs, x1, V.vggish_conv, dtype)
+        ref = _k3_stack(convs, x1, V.vggish_conv_plain, dtype)
+        err, scale = _k3_check(f"N={N}", got, ref, dtype)
+        ms = cuda_ms(lambda: _k3_stack(convs, x1, V.vggish_conv, dtype),
+                     iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: _k3_stack(convs, x1, V.vggish_conv_plain,
+                                             dtype), iters=1, warmup=1)
         lib_ms = cuda_ms(library, iters=3, warmup=1)
         weights = [t for c in convs[1:] for t in (c.w.to(dtype), c.b)]
         bnd = bound(_conv_ops(x1, convs), nbytes(x1, *weights, got), dtype)
@@ -1162,12 +1213,31 @@ def phase_k3(card: str, serving) -> dict:
             f"{scale:.3e} (tol {K3_RTOL[dtype]:.0e} of max) kernel {ms:.2f} "
             f"ms plain {plain_ms:.2f} ms cuDNN {lib_ms:.2f} ms bound "
             f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}) [{card}]")
-        if not (scale > 0 and err <= K3_RTOL[dtype] * scale):
-            raise AssertionError(f"K3 {dtype}: max|d| {err} > "
-                                 f"{K3_RTOL[dtype]} x {scale}")
         if dtype == torch.bfloat16:
             summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        **bnd, "library_ms": lib_ms}
+            x, parts = x1, []
+            for c, pool in zip(convs[1:], V.POOLS):
+                layer_ms = cuda_ms(lambda: V.vggish_conv(
+                    x, c.w, c.b, pool=pool, dtype=dtype), iters=3, warmup=1)
+                N_, H_, W_, Cin = x.shape
+                tflops = 2 * N_ * H_ * W_ * 9 * Cin * c.w.shape[-1] / (
+                    layer_ms * 1e9)
+                parts.append(f"Cin {Cin} -> {c.w.shape[-1]} {layer_ms:.3f} "
+                             f"ms ({tflops:.0f} TFLOP/s)")
+                x = V.vggish_conv(x, c.w, c.b, pool=pool, dtype=dtype)
+            log("K3 vggish_conv bf16 per layer: " + ", ".join(parts)
+                + f" [{card}]")
+            # ragged sizes: a lone example (every tile partial) and one
+            # request's audio bucket (tiles that cross examples)
+            for n in (1, mel.shape[1]):
+                err, scale = _k3_check(
+                    f"N={n}", _k3_stack(convs, x1[:n], V.vggish_conv, dtype),
+                    _k3_stack(convs, x1[:n], V.vggish_conv_plain, dtype),
+                    dtype)
+                log(f"K3 vggish_conv conv2..conv6 N={n} bf16: max|d|="
+                    f"{err:.3e} of max {scale:.3e} (tol "
+                    f"{K3_RTOL[dtype]:.0e} of max)")
 
     # the K3 path: the audio tower with use_kernel=True
     _reset_launches()
@@ -1296,25 +1366,31 @@ def main() -> None:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
+         "design": "one launch a step, SIMT recurrence and input GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
          "replaces": "mmqg_tpu/ops/lstm_pallas.py:100",
          "launches": launches["lstm_seq"], **k1},
         {"name": "trimodal_attention", "route": "cuda",
+         "design": "one block a (batch row, modality), SIMT",
          "source": "mmqg_tpu_torch/csrc/trimodal_attention.cu",
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
          "launches": launches["trimodal_attention"], **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
+         "design": "one launch a step, SIMT input GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:147",
          "launches": train_launches["lstm_train_fwd"], **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
+         "design": "persistent sweep + mma.sync GEMMs",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:209",
          "launches": train_launches["lstm_train_bwd"], **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
+         "design": "wgmma implicit GEMM, 3-stage cp.async ring",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/ops/vggish_pallas.py:137", **k3},
         {"name": "vggish_conv_int8", "route": "cuda",
+         "design": "SIMT __dp4a implicit GEMM",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/models/audio_encoder.py:157",
          "launches": launches["vggish_conv_int8"], **int8}]

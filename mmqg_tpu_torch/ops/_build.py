@@ -35,7 +35,8 @@ SIGNATURES = {
     "mmqg_lstm_seq": [_P] * 11 + [_I] * 5 + [_P],
     "mmqg_trimodal_attention": [_P] * 13 + [_I] * 8 + [_P],
     "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 5 + [_P],
-    "mmqg_lstm_train_bwd": [_P] * 17 + [_I] * 5 + [_P],
+    "mmqg_lstm_train_bwd": [_P] * 19 + [_I] * 6 + [_P],
+    "mmqg_lstm_train_bwd_persistent": [_I] * 3,
     "mmqg_vggish_conv": [_P] * 4 + [_I] * 7 + [_P],
     "mmqg_vggish_conv_int8": [_P] * 6 + [_I] * 7 + [_P],
 }

@@ -19,6 +19,7 @@ gradients are f32.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -78,11 +79,19 @@ def lstm_train_bwd_plain(wx: Tensor, wh: Tensor, xs: Tensor, h0: Tensor,
         dh_carry = L.mm(da, wh.t(), dtype)
         dc = dcv * f
     da_all = torch.stack(das, 1).reshape(B * T, 4 * H)
-    h_prev = torch.cat([h0[:, None], out[:, :-1]], 1).reshape(B * T, H)
+    h_prev = h_prev_seq(h0, out).reshape(B * T, H)
     dx = L.mm(da_all, wx.t(), dtype).reshape(B, T, In)
     dwx = L.mm(xs.reshape(B * T, In).t(), da_all, dtype)
     dwh = L.mm(h_prev.t(), da_all, dtype)
     return dwx, dwh, da_all.sum(0), dx, dh_carry, dc
+
+
+def h_prev_seq(h0: Tensor, out: Tensor,
+               dtype: torch.dtype = torch.float32) -> Tensor:
+    """(B, T, H): the state each step starts from, ``h0`` at t = 0 and
+    ``out[:, t - 1]`` after, in ``dtype`` -- the left operand of dWh
+    (rounded to the compute dtype for the kernel's tensor-core product)."""
+    return torch.cat([h0[:, None], out[:, :-1]], 1).to(dtype)
 
 
 def _check(name: str, t: Tensor, shape, dtype, device) -> None:
@@ -153,8 +162,13 @@ def _bwd_kernel(wx, wh, xs, h0, c0, out, c_seq, gates, d_out, d_cseq, d_hT,
                            ("d_cseq", d_cseq, (B, T, H)),
                            ("d_hT", d_hT, (B, H)), ("d_cT", d_cT, (B, H))):
         _check(name, t, shape, torch.float32, dev)
-    h_prev = torch.cat([h0[:, None], out[:, :-1]], 1)
+    h_prev = h_prev_seq(h0, out, dtype)
+    bf16 = int(dtype == torch.bfloat16)
     da = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+    # the bf16 copy of da that the tensor-core GEMMs read (unused in f32)
+    da_op = torch.empty((B, T, 4 * H) if bf16 else (0,), dtype=dtype,
+                        device=dev)
+    sync = torch.empty((1,), dtype=torch.int32, device=dev)  # grid barrier
     dc = d_cT.clone()
     dx = torch.empty((B, T, In), dtype=torch.float32, device=dev)
     dwx = torch.empty((In, 4 * H), dtype=torch.float32, device=dev)
@@ -163,17 +177,37 @@ def _bwd_kernel(wx, wh, xs, h0, c0, out, c_seq, gates, d_out, d_cseq, d_hT,
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
+        route = bwd_route(B, H, dtype)
         rc = lib.mmqg_lstm_train_bwd(
             x.data_ptr(), h_prev.data_ptr(), c0.data_ptr(), c_seq.data_ptr(),
             gates.data_ptr(), wxc.data_ptr(), whc.data_ptr(),
             d_out.data_ptr(), d_cseq.data_ptr(), d_hT.data_ptr(),
-            da.data_ptr(), dc.data_ptr(), dx.data_ptr(), dwx.data_ptr(),
-            dwh.data_ptr(), db.data_ptr(), dh0.data_ptr(), B, T, In, H,
-            int(dtype == torch.bfloat16),
+            da.data_ptr(), da_op.data_ptr(), dc.data_ptr(), sync.data_ptr(),
+            dx.data_ptr(), dwx.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+            dh0.data_ptr(), B, T, In, H, bf16, int(route == "persistent"),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_train_bwd")
+    lstm_layer_train.bwd_routes[route] += 1
     lstm_layer_train.bwd_launches += 1
     return dwx, dwh, db, dx, dh0, dc
+
+
+def bwd_route(B: int, H: int, dtype: torch.dtype) -> str:
+    """The backward sweep's route at (B, H) on the current CUDA device,
+    decided by shape before any launch: "persistent" (one cooperative
+    launch for all steps) when every block of it can be resident at once,
+    else "per_step" (one launch a step, e.g. at H=2048)."""
+    return _bwd_route(B, H, dtype == torch.bfloat16,
+                      torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(B: int, H: int, bf16: bool, device: int) -> str:
+    fits = _build.library().mmqg_lstm_train_bwd_persistent(B, H, int(bf16))
+    if fits < 0:
+        raise RuntimeError(f"mmqg_lstm_train_bwd_persistent: CUDA error "
+                           f"{-fits} (cudaError_t)")
+    return "persistent" if fits else "per_step"
 
 
 def _route(device: torch.device, plain, kernel):
@@ -218,13 +252,16 @@ def lstm_layer_train(wx: Tensor, wh: Tensor, b: Tensor, xs: Tensor,
     Returns (out_seq (B,T,H), c_seq (B,T,H), hT (B,H), cT (B,H)), f32, with
     gradients to every input. On CUDA each forward counts one launch of the
     forward entry (``lstm_layer_train.fwd_launches``) and each backward one
-    of the backward entry (``.bwd_launches``)."""
+    of the backward entry (``.bwd_launches``) and one of its sweep route
+    (``.bwd_routes``)."""
     return _LSTMLayerTrain.apply(wx, wh, b, xs, h0.contiguous(),
                                  c0.contiguous(), dtype)
 
 
 lstm_layer_train.fwd_launches = 0
 lstm_layer_train.bwd_launches = 0
+# backward launches by sweep route (see bwd_route)
+lstm_layer_train.bwd_routes = {"persistent": 0, "per_step": 0}
 
 
 def gather_at(seq: Tensor, lengths: Tensor) -> Tensor:

@@ -3,9 +3,10 @@
 Counterpart of ``mmqg_tpu/ops/vggish_pallas.py`` (:func:`vggish_features`
 replaces ``vggish_features_pallas``) and of the int8 conv in
 ``mmqg_tpu/models/audio_encoder.py::embed_examples_int8``
-(:func:`conv3x3_relu_int8`). Both run one hand-written kernel design,
+(:func:`conv3x3_relu_int8`). Both run hand-written kernels in
 ``csrc/vggish_conv.cu`` (see its header): a 3x3 SAME conv with bias, ReLU
-and an optional 2x2 max pool fused, over NHWC activations and HWIO weights.
+and an optional 2x2 max pool fused, over NHWC activations and HWIO weights;
+in bf16 a tensor-core implicit GEMM, in f32 and int8 SIMT kernels.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. Any other device
@@ -87,6 +88,13 @@ def _check_shape(fn: str, H: int, W: int, Cin: int, Cout: int, pool: bool,
 
 # ------------------------------------------------------------------- K3
 
+def pack_weights_kmajor(w: Tensor, dtype: torch.dtype) -> Tensor:
+    """HWIO ``w (3, 3, Cin, Cout)`` as the bf16 kernel's B operand: (Cout,
+    3, 3, Cin) in ``dtype``, contiguous, so row ``co`` holds the GEMM's K =
+    (tap, Cin) for output channel ``co``."""
+    return w.to(dtype).permute(3, 0, 1, 2).contiguous()
+
+
 def vggish_conv_plain(x: Tensor, w: Tensor, b: Tensor, *, pool: bool,
                       dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """Plain PyTorch version of :func:`vggish_conv`: 9 shifted products
@@ -111,17 +119,21 @@ def vggish_conv(x: Tensor, w: Tensor, b: Tensor, *, pool: bool,
         raise ValueError(f"vggish_conv: compute dtype {dtype} not supported")
     N, H, W, Cin = x.shape
     Cout = w.shape[-1]
-    wc = w.to(dtype).contiguous()
+    # bf16: the tensor-core kernel takes its weights K-major and K 64
+    # channels of one tap at a time; f32: the SIMT kernel takes HWIO
+    bf16 = dtype == torch.bfloat16
+    wc = pack_weights_kmajor(w, dtype) if bf16 else w.to(dtype).contiguous()
     _check("vggish_conv", x.device, {
-        "x": (x, (N, H, W, Cin), dtype), "w": (wc, (3, 3, Cin, Cout), dtype),
+        "x": (x, (N, H, W, Cin), dtype),
+        "w": (wc, (Cout, 3, 3, Cin) if bf16 else (3, 3, Cin, Cout), dtype),
         "b": (b, (Cout,), torch.float32)})
-    _check_shape("vggish_conv", H, W, Cin, Cout, pool, 8)
+    _check_shape("vggish_conv", H, W, Cin, Cout, pool, 64 if bf16 else 8)
     Ho, Wo = (H // 2, W // 2) if pool else (H, W)
     y = torch.empty((N, Ho, Wo, Cout), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _build.library().mmqg_vggish_conv(
             x.data_ptr(), wc.data_ptr(), b.data_ptr(), y.data_ptr(), N, H, W,
-            Cin, Cout, int(pool), int(dtype == torch.bfloat16),
+            Cin, Cout, int(pool), int(bf16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_vggish_conv")
     vggish_conv.launches += 1

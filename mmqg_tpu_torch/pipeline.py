@@ -27,21 +27,24 @@ from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
+from mmqg_tpu_torch.utils.device import resolve_device
 
 
 class QGPipeline:
     def __init__(self, config, mc: qg_model.ModelConfig, params, model_state,
                  vocab: Dict[str, int], index_to_word: Dict[str, str], *,
-                 device="cpu", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
         """``params``/``model_state``: the JAX package's pytrees with numpy
         (or array-like) leaves. ``dtype`` is the compute dtype (bfloat16
         serves, as in the JAX package; float32 is for parity checks).
         Questions are up to ``mc.target_steps - 1`` tokens long
-        (``config.question_max_length`` for a config-built ``mc``)."""
+        (``config.question_max_length`` for a config-built ``mc``). The
+        model goes to ``device``, the card by default; without CUDA that
+        raises unless the caller passes ``device="cpu"``."""
         qg_model.check_supported(mc)
         self.config = config
         self.mc = mc
-        self.device = torch.device(device)
+        self.device = resolve_device(device, caller="QGPipeline")
         self.dtype = dtype
         self.model = params_from_numpy(params, model_state, self.device)
         self.vocab = vocab
@@ -51,10 +54,12 @@ class QGPipeline:
     @classmethod
     def from_checkpoint(cls, config, alias: str = "best",
                         mode: str = "trimodal", decoder: str = "attn", *,
-                        device="cpu",
+                        device="cuda",
                         dtype: torch.dtype = torch.bfloat16) -> "QGPipeline":
         """Load ``<checkpoint_dir>/<alias>.msgpack`` written by the JAX
-        package's trainer, with the vocabulary files named by ``config``."""
+        package's trainer, with the vocabulary files named by ``config``,
+        onto ``device`` (as ``QGPipeline``)."""
+        resolve_device(device, caller="QGPipeline.from_checkpoint")
         with open(config.vocab_file) as f:
             vocab = json.load(f)
         with open(config.index_to_word_file) as f:

@@ -44,6 +44,7 @@ from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.optim import (Transform, apply_updates, global_norm,
                                   learning_rate_schedule, make_optimizer,
                                   tree_leaves, tree_map)
+from mmqg_tpu_torch.utils.device import resolve_device
 from mmqg_tpu_torch.utils.pipelining import pipelined
 
 Tensor = torch.Tensor
@@ -64,9 +65,12 @@ class TrainState:
 
 def init_train_state(mc: qg_model.ModelConfig, emb_weights,
                      optimizer: Transform, *, seed: int = 0,
-                     device="cpu") -> TrainState:
+                     device="cuda") -> TrainState:
     """A fresh trainable model (``qg_model.init_params`` from ``seed``, the
-    embedding table from ``emb_weights``) and its optimizer state."""
+    embedding table from ``emb_weights``) and its optimizer state, on
+    ``device``: the card by default; without CUDA that raises unless the
+    caller passes ``device="cpu"``."""
+    device = resolve_device(device, caller="init_train_state")
     params, state = qg_model.init_params(mc, seed, emb_weights)
     model = params_from_numpy(params, state, device, trainable=True)
     return TrainState(model, optimizer.init(qg_model.param_tree(model)))

@@ -45,7 +45,8 @@ def saved(tiny_config, tmp_path_factory):
 
 def test_from_checkpoint_is_bit_equal(saved):
     cfg, mc, params, state, _ = saved
-    pipe = QGPipeline.from_checkpoint(cfg, alias="best", dtype=torch.float32)
+    pipe = QGPipeline.from_checkpoint(cfg, alias="best", device="cpu",
+                                     dtype=torch.float32)
     assert pipe.mc._asdict() == mc._asdict()
     direct = params_from_numpy(params, state).state_dict()
     loaded = pipe.model.state_dict()
@@ -69,7 +70,8 @@ def test_checkpoint_greedy_tokens_match_jax_f32(saved):
         restored["params"], restored["model_state"], mc,
         {k: jnp.asarray(v) for k, v in b.items()}, jax.random.PRNGKey(0),
         max_len=mc.target_steps - 1, use_pallas=False, dtype=jnp.float32))
-    pipe = QGPipeline.from_checkpoint(cfg, dtype=torch.float32)
+    pipe = QGPipeline.from_checkpoint(cfg, device="cpu",
+                                     dtype=torch.float32)
     got = DEC.decode_batch(pipe.model, pipe.mc, torch_batch(b),
                            max_len=mc.target_steps - 1, dtype=torch.float32)
     np.testing.assert_array_equal(got.numpy(), ref)

@@ -66,7 +66,7 @@ def test_main_path_rehearsal_on_cpu():
     words = ["<pad>", "<start>", "<end>"] + [f"w{i}" for i in range(3, 50)]
     vocab = {w: i for i, w in enumerate(words)}
     i2w = {str(i): w for i, w in enumerate(words)}
-    pipe = QGPipeline(None, mc, params, state, vocab, i2w,
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
                       dtype=torch.float32)
     req = chip_smoke.requests(mc, 3, seed=1)
     assert all(1 <= len(f) <= mc.av_max_length for f in req[1])
@@ -89,7 +89,7 @@ def test_int8_card_vs_cpu_driving_rehearsal_on_cpu():
     mc = mc._replace(audio_int8_serving=False)
     vocab = {w: int(i) for i, w in i2w.items()}
     params = chip_smoke.he_vggish(params)
-    pipe = QGPipeline(None, mc, params, state, vocab, i2w,
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
                       dtype=torch.float32)
     req = chip_smoke.requests(mc, 3, seed=5)
     mem_f, _, _ = chip_smoke._encode_decode(pipe, req)

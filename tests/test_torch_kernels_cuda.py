@@ -111,38 +111,71 @@ def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
         trimodal_attention(*args)
 
 
-# K4, f32: max |kernel - plain| of the forward 1e-5, each gradient within
-# 1e-4 of its max |plain| (summation order over B*T rows; chip_smoke.K4_*)
-K4_FWD_TOL, K4_GRAD_RTOL = 1e-5, 1e-4
+# K4, max |kernel - plain| of the forward, and of each gradient over its
+# max |plain|. f32: summation order over B*T rows; bf16: the forward as K1
+# (5e-3), gradients 2e-2 (da is rounded to bf16 before every product;
+# chip_smoke.K4_FWD_TOL and K4_GRAD_TOL)
+K4_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 2e-2)}
+
+
+def _k4_check(dev, B, T, In, H, dtype, seed=3):
+    """Forward + backward kernels vs plain at one shape; returns the
+    backward routes the call took."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rng.randn(*shape) * s).astype(
+            np.float32)).to(dev)
+    args = [t(In, 4 * H, s=In ** -0.5), t(H, 4 * H, s=H ** -0.5),
+            t(4 * H, s=0.1), t(B, T, In), t(B, H, s=0.5), t(B, H, s=0.5)]
+    cots = [t(B, T, H), t(B, T, H), t(B, H), t(B, H)]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches,
+              dict(lstm_layer_train.bwd_routes))
+    outs = lstm_layer_train(*leaves, dtype)
+    torch.autograd.backward(outs, cots)
+    assert (lstm_layer_train.fwd_launches,
+            lstm_layer_train.bwd_launches) == (before[0] + 1, before[1] + 1)
+    routes = {k: v - before[2][k]
+              for k, v in lstm_layer_train.bwd_routes.items()}
+    out, cseq, gates, hT, cT = lstm_train_fwd_plain(*args, dtype)
+    ref = lstm_train_bwd_plain(args[0], args[1], args[3], args[4], args[5],
+                               out, cseq, gates, *cots, dtype)
+    torch.cuda.synchronize()
+    fwd_tol, grad_rtol = K4_TOL[dtype]
+    for g, r in zip(outs, (out, cseq, hT, cT)):
+        assert float((g.detach() - r).abs().max()) <= fwd_tol
+    got = [leaves[i].grad for i in (0, 1, 2, 3, 4, 5)]  # dwx dwh db dx dh0 dc0
+    for name, g, r in zip(("dwx", "dwh", "db", "dx", "dh0", "dc0"), got, ref):
+        err = float((g - r).abs().max())
+        assert err <= grad_rtol * float(r.abs().max()), (name, err)
+    return routes
 
 
 @pytest.mark.parametrize("B,T,In,H", [(20, 37, 300, 64), (33, 1, 24, 8),
                                       (5, 9, 72, 128)])
 def test_lstm_layer_train_kernels_match_plain(dev, B, T, In, H):
-    rng = np.random.RandomState(2)
+    _k4_check(dev, B, T, In, H, torch.float32, seed=2)
 
-    def t(*shape, s=1.0):
-        return torch.from_numpy((rng.randn(*shape) * s).astype(
-            np.float32)).to(dev)
-    args = [t(In, 4 * H, s=In ** -0.5), t(H, 4 * H, s=H ** -0.5), t(4 * H),
-            t(B, T, In), t(B, H, s=0.5), t(B, H, s=0.5)]
-    cots = [t(B, T, H), t(B, T, H), t(B, H), t(B, H)]
-    leaves = [a.clone().requires_grad_(True) for a in args]
-    before = (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches)
-    outs = lstm_layer_train(*leaves, torch.float32)
-    torch.autograd.backward(outs, cots)
-    assert (lstm_layer_train.fwd_launches,
-            lstm_layer_train.bwd_launches) == (before[0] + 1, before[1] + 1)
-    out, cseq, gates, hT, cT = lstm_train_fwd_plain(*args, torch.float32)
-    ref = lstm_train_bwd_plain(args[0], args[1], args[3], args[4], args[5],
-                               out, cseq, gates, *cots, torch.float32)
-    torch.cuda.synchronize()
-    for g, r in zip(outs, (out, cseq, hT, cT)):
-        assert float((g.detach() - r).abs().max()) <= K4_FWD_TOL
-    got = [leaves[i].grad for i in (0, 1, 2, 3, 4, 5)]  # dwx dwh db dx dh0 dc0
-    for g, r in zip(got, ref):
-        assert float((g - r).abs().max()) <= K4_GRAD_RTOL * float(
-            r.abs().max())
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,In,H", [(5, 1, 300, 512), (32, 17, 300, 512),
+                                      (8, 9, 1000, 512)])
+def test_lstm_layer_train_backward_at_the_encoders_width(dev, B, T, In, H,
+                                                         dtype):
+    """The persistent sweep and the gradient GEMMs (tensor cores in bf16)
+    at H=512: one step (the barrier's edge), ragged B and In = 300."""
+    routes = _k4_check(dev, B, T, In, H, dtype)
+    assert routes == {"persistent": 1, "per_step": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_train_backward_per_step_route(dev, dtype):
+    """H=1024 at B=20 needs 128 x 2 sweep blocks, more than can be
+    resident: the wrapper takes the per-step route, which writes the same
+    da (and its bf16 copy for the GEMMs)."""
+    routes = _k4_check(dev, 20, 5, 72, 1024, dtype)
+    assert routes == {"persistent": 0, "per_step": 1}
 
 
 def test_lstm_layer_train_kernel_rejects_what_it_cannot_take(dev):
@@ -179,7 +212,9 @@ def _vggish_convs(dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype,N", [(torch.float32, 3),
-                                     (torch.bfloat16, 3), (torch.float32, 1)])
+                                     (torch.bfloat16, 3), (torch.float32, 1),
+                                     (torch.bfloat16, 1),
+                                     (torch.bfloat16, 37)])
 def test_vggish_features_kernel_matches_plain(dev, dtype, N):
     convs = _vggish_convs(dev)
     mel = torch.from_numpy((np.random.RandomState(N).randn(N, 96, 64) * 2
@@ -240,6 +275,11 @@ def test_vggish_kernels_reject_what_they_cannot_take(dev):
                             pool=True)
     x = torch.zeros(2, 8, 8, 64, device=dev)
     w = torch.zeros(3, 3, 64, 128, device=dev)
+    # the bf16 tensor-core kernel takes 64 channels of a tap at a time
+    with pytest.raises(ValueError, match="Cin % 64"):
+        V.vggish_conv(x[..., :40].bfloat16().contiguous(),
+                      w[:, :, :40].contiguous(), b[:128], pool=True,
+                      dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="x is"):
         V.vggish_conv(x, w, b[:128], pool=True, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):

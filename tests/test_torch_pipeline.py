@@ -30,7 +30,7 @@ def pipes(tiny_config):
     vocab, i2w = _vocab()
     jax_pipe = JaxPipeline(tiny_config, mc, params, state, vocab, i2w)
     port = QGPipeline(tiny_config, TQ.ModelConfig(**mc._asdict()), params,
-                      state, vocab, i2w, dtype=torch.float32)
+                      state, vocab, i2w, device="cpu", dtype=torch.float32)
     return jax_pipe, port
 
 

@@ -344,7 +344,7 @@ def test_pipeline_calibrate_audio_int8_matches_jax(tiny_config):
              for _ in range(3)]
     jax_pipe = JaxPipeline(tiny_config, mc, params, state, vocab, i2w)
     port = QGPipeline(tiny_config, TQ.ModelConfig(**mc._asdict()), params,
-                      state, vocab, i2w)
+                      state, vocab, i2w, device="cpu")
     assert port.calibrate_audio_int8(audio) is port
     ref = jax_pipe.calibrate_audio_int8(audio).mc.audio_int8_scales
     got = port.mc.audio_int8_scales
