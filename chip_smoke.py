@@ -6,20 +6,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi), torch/CUDA/nvcc
 2. build    nvcc builds the kernels in mmqg_tpu_torch/csrc/ (seconds)
-3. K1       lstm_seq kernel vs its plain PyTorch version, on the card
+3. K1       lstm_seq kernel vs its plain PyTorch version, on the card, at
+            the encoders' shapes and one edge case (B=5, T=1); the route must
+            be the persistent sweep; at text layer 0 bf16 the persistent and
+            per-step routes timed in turns beside cuDNN, the input GEMM
+            alone, the sweep's barrier floor and the routes at B=128
 4. K2       trimodal_attention kernel vs its plain version, on the card
 5. main     QGPipeline at the flagship's full width (random weights from a
-            seed) answers 32 greedy requests; K1 must launch 4x per encode
-            and K2 21x per decode
+            seed) answers 32 greedy requests; K1 must launch 4x per encode,
+            each by the persistent route, and K2 21x per decode
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
 7. K4       lstm_layer_train forward + backward kernels vs their plain
             versions at the encoders' shapes and one edge case (B=5, T=1),
-            f32 and bf16, with times; the backward's sweep route must be
-            the persistent one at the encoders' shapes
+            f32 and bf16, with times; the forward's and the backward's
+            routes must be the persistent sweeps at the encoders' shapes; the
+            forward's two routes timed in turns at text layer 0 bf16
 8. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
             on a synthetic in-memory corpus: K4 must launch 4x forward and
-            4x backward per step, K1/K2 none; one step timed and profiled
+            4x backward per step, all persistent, K1/K2 none; one step timed
+            and profiled
             (step ms, samples/s, device idle share); then validate(), which
             must launch K1 4x per batch and K2 22x per batch
 9. train card/cpu  one f32 train step of 4 samples on the card and on the
@@ -56,6 +62,7 @@ any result. It imports nothing of JAX and nothing of the JAX package
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +85,7 @@ from mmqg_tpu_torch.ops import vggish as V
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
 from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
-from mmqg_tpu_torch.ops.lstm_train import (lstm_layer_train,
+from mmqg_tpu_torch.ops.lstm_train import (bwd_route, lstm_layer_train,
                                            lstm_train_bwd_plain,
                                            lstm_train_fwd_plain)
 from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_leaves,
@@ -164,6 +171,35 @@ def phase_build() -> float:
     return built.seconds
 
 
+# the encoders' LSTM layers at B=32 (K1 and K4), and the edges of the
+# sweeps' grid barrier (one step) and of the GEMM tiles (5 rows, In = 300):
+# checked, not timed against the path
+LSTM_SHAPES = (("text layer 0", 32, 283, 300, 512),
+               ("text layer 1", 32, 283, 512, 512),
+               ("video", 32, 101, 1000, 512))
+LSTM_EDGE = ("edge", 5, 1, 300, 512)
+ROUND_TRIP = ("persistent", "per_step", "per_step", "persistent")
+
+
+def routes_taken(counts: dict, before: dict) -> str:
+    """The routes a call took, from a route counter before and after."""
+    return ",".join(k for k, v in counts.items() if v - before[k])
+
+
+def in_turns(fns: dict) -> dict:
+    """{route: [ms, ms]}: each route's callable timed twice, in the order
+    persistent, per_step, per_step, persistent."""
+    out = {}
+    for name in ROUND_TRIP:
+        out.setdefault(name, []).append(cuda_ms(fns[name], iters=5))
+    return out
+
+
+def fmt_turns(times: dict) -> str:
+    return ", ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in v) + " ms"
+                     for k, v in times.items())
+
+
 def _k1_case(rng, B, T, In, H, dtype, dev):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -174,7 +210,9 @@ def _k1_case(rng, B, T, In, H, dtype, dev):
     h0 = torch.zeros((B, H), device=dev)
     lens = torch.from_numpy(rng.randint(1, T + 1, B).astype(np.int32)).to(dev)
     args = (xs, wx, wh, b, h0, h0, lens)
+    before = dict(lstm_seq.routes)
     got = lstm_seq(*args, dtype=dtype)
+    route = routes_taken(lstm_seq.routes, before)
     ref = lstm_seq_plain(*args, dtype=dtype)
     torch.cuda.synchronize()
     err = max(max_abs(g, r) for g, r in zip(got, ref))
@@ -182,7 +220,7 @@ def _k1_case(rng, B, T, In, H, dtype, dev):
     plain_ms = cuda_ms(lambda: lstm_seq_plain(*args, dtype=dtype), iters=3)
     # every step of every row, input projection and recurrence
     bnd = bound(2 * B * T * (In + H) * 4 * H, nbytes(*args, *got), dtype)
-    return err, ms, plain_ms, bnd, args
+    return err, ms, plain_ms, bnd, args, route
 
 
 def cudnn_lstm(wx, wh, b, xs, lens, dtype):
@@ -241,38 +279,112 @@ K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 
 
+def _input_gemm(args, dtype, card: str) -> float:
+    """Time the forward's input projection alone (x.Wx + b, the kernel K1
+    and K4's forward both launch first) on K1's inputs ``args``, beside
+    cuBLAS's matmul of the same operands; returns its ms."""
+    xs, wx, _, b = args[:4]
+    B, T, In = xs.shape
+    N = wx.shape[1]
+    x = xs.to(dtype).reshape(B * T, In).contiguous()
+    w = wx.to(dtype).contiguous()
+    out = torch.empty((B * T, N), device=xs.device)
+    lib = _build.library()
+
+    def run():
+        _build.check(lib.mmqg_lstm_input_proj(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B * T,
+            N, In, int(dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "mmqg_lstm_input_proj")
+    run()
+    err = max_abs(out, L.mm(x, w, dtype) + b)
+    ms = cuda_ms(run, iters=20)
+    lib_ms = cuda_ms(lambda: torch.matmul(x, w), iters=20)
+    bnd = bound(2 * B * T * In * N, nbytes(x, w, b, out), dtype)
+    log(f"K1/K4 input GEMM alone (x.Wx + b, M={B * T} N={N} K={In} "
+        f"{str(dtype)[6:]}): {ms:.4f} ms, max|d| from plain {err:.2e}; "
+        f"cuBLAS matmul ({str(dtype)[6:]} out) {lib_ms:.4f} ms; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    if not err <= 1e-4 * float(out.abs().max()):
+        raise AssertionError(f"input GEMM max|d| {err}")
+    return ms
+
+
 def phase_k1(card: str) -> dict:
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
-    shapes = (("text layer 0", 32, 283, 300, 512),
-              ("text layer 1", 32, 283, 512, 512),
-              ("video", 32, 101, 1000, 512))
-    summary = {}
+    summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, T, In, H in shapes:
-            err, ms, plain_ms, bnd, args = _k1_case(rng, B, T, In, H, dtype,
-                                                    dev)
+        for name, B, T, In, H in LSTM_SHAPES + (LSTM_EDGE,):
+            err, ms, plain_ms, bnd, args, route = _k1_case(rng, B, T, In, H,
+                                                           dtype, dev)
             lib = cudnn_lstm_ms(args[1], args[2], args[3], args[0], args[6],
                                 dtype)
             log(f"K1 lstm_seq {name} B={B} T={T} In={In} H={H} "
-                f"{str(dtype)[6:]}: max|d|={err:.3e} (tol "
+                f"{str(dtype)[6:]}: route {route}; max|d|={err:.3e} (tol "
                 f"{K1_TOL[dtype]:.0e}) kernel {ms:.3f} ms plain "
                 f"{plain_ms:.3f} ms cuDNN LSTM fwd {fmt_ms(lib['fwd'])} bound "
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {T} dependent "
                 f"steps) [{card}]")
             if not err <= K1_TOL[dtype]:
-                raise AssertionError(f"K1 {name} {dtype}: max|d| {err} > "
-                                     f"{K1_TOL[dtype]}")
+                failures.append(f"{name} {dtype}: max|d| {err}")
+            if route != "persistent":
+                failures.append(f"{name} {dtype}: route {route}")
             if dtype == torch.bfloat16 and name == "text layer 0":
+                turns = in_turns({r: lambda r=r: lstm_seq(
+                    *args, dtype=dtype, force_route=r)
+                    for r in ("persistent", "per_step")})
+                log(f"K1 text layer 0 bf16, both routes in turns: "
+                    f"{fmt_turns(turns)}; cuDNN LSTM fwd {fmt_ms(lib['fwd'])}"
+                    f" [{card}]")
                 summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           **bnd, "library_ms": lib["fwd"]}
-    # the latency floor under K1's bound for a design that launches once a
-    # step: 283 back-to-back launches of a one-element kernel
+                           **bnd, "library_ms": lib["fwd"],
+                           "per_step_ms": min(turns["per_step"]),
+                           "input_gemm_ms": _input_gemm(args, dtype, card)}
+    # the latency floor of each design: 283 back-to-back launches of a
+    # one-element kernel (one launch a step), and one cooperative launch of
+    # the sweep's grid doing 283 grid barriers and nothing else
     one = torch.zeros(1, device=dev)
     floor = cuda_ms(lambda: [one.add_(1.0) for _ in range(283)], iters=5)
     log(f"K1 latency floor: 283 dependent one-element launches take "
         f"{floor:.3f} ms ({floor / 283 * 1e3:.2f} us each) [{card}]")
-    return summary
+    lib = _build.library()
+    sync = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def barrier_floor():
+        _build.check(lib.mmqg_lstm_barrier_floor(
+            sync.data_ptr(), 32, 512, 283,
+            torch.cuda.current_stream().cuda_stream),
+            "mmqg_lstm_barrier_floor")
+    barriers = cuda_ms(barrier_floor, iters=5)
+    log(f"K1/K4 barrier floor: one cooperative launch of the sweep's 64 x 2 "
+        f"grid (B=32, H=512) doing 283 grid barriers takes {barriers:.3f} ms "
+        f"({barriers / 283 * 1e3:.2f} us a barrier) [{card}]")
+    # the batch a later benchmark serves
+    both = (torch.bfloat16, torch.float32)
+
+    def rows(entry, dtype):
+        return str(16 * _build.sweep_rows(entry, 128, 512,
+                                          dtype == torch.bfloat16, 0))
+    log("routes at B=128, H=512 (bf16 / f32): K1 persistent, "
+        + " / ".join(rows("mmqg_lstm_seq_rows", d) for d in both)
+        + " rows a cooperative launch; K4 forward persistent, "
+        + " / ".join(rows("mmqg_lstm_train_fwd_rows", d) for d in both)
+        + " rows a launch; K4 backward "
+        + " / ".join(bwd_route(128, 512, d) for d in both)
+        + " (0 rows: per_step)")
+    err, ms, _, _, args, route = _k1_case(rng, 128, 283, 300, 512,
+                                          torch.bfloat16, dev)
+    lib = cudnn_lstm_ms(args[1], args[2], args[3], args[0], args[6],
+                        torch.bfloat16)
+    log(f"K1 lstm_seq text layer 0 B=128 bf16: route {route}; max|d|="
+        f"{err:.3e} (tol {K1_TOL[torch.bfloat16]:.0e}) kernel {ms:.3f} ms "
+        f"cuDNN LSTM fwd {fmt_ms(lib['fwd'])} [{card}]")
+    if not err <= K1_TOL[torch.bfloat16]:
+        failures.append(f"B=128: max|d| {err}")
+    if failures:
+        raise AssertionError(f"K1 kernel and plain disagree: {failures}")
+    return dict(summary, barrier_floor_ms=barriers)
 
 
 def _k2_case(rng, B, dtype, dev):
@@ -454,6 +566,7 @@ def phase_main(card: str, model) -> dict:
         "attention steps per decode)")
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    check_routes("main: K1", lstm_seq.routes, want["lstm_seq"])
     if len(questions) != N_REQUESTS or not all(
             isinstance(q, str) for q in questions):
         raise AssertionError("generate() did not return one string a request")
@@ -533,12 +646,6 @@ INT8_LOGIT_TOL = 1e-3
 
 # ----------------------------------------------------------------- K4 phase
 
-K4_SHAPES = (("text layer 0", 32, 283, 300, 512),
-             ("text layer 1", 32, 283, 512, 512),
-             ("video", 32, 101, 1000, 512))
-# the edges of the sweep's grid barrier (one step) and of the GEMM tiles
-# (5 rows, In = 300): checked, not timed against the path
-K4_EDGE = ("edge", 5, 1, 300, 512)
 # max |kernel - plain| of the forward outputs (h and c sequences, hT, cT),
 # as K1: f32 differs only in summation order; bf16 rounds h before every
 # Wh product, so an order-induced rounding flip moves h by a bf16 ulp and
@@ -590,9 +697,10 @@ def _k4_case(rng, B, T, In, H, dtype, dev):
     grad_rel = {k: max_abs(got[k], ref[k]) / float(ref[k].abs().max())
                 for k in K4_NAMES}
 
-    def kernel_fwd():
+    def kernel_fwd(force_route=None):
         with torch.no_grad():
-            return lstm_layer_train(wx, wh, b, xs, h0, c0, dtype)
+            return lstm_layer_train(wx, wh, b, xs, h0, c0, dtype,
+                                    force_route=force_route)
 
     with torch.no_grad():
         res = lstm_train_fwd_plain(wx, wh, b, xs, h0, c0, dtype)
@@ -615,7 +723,7 @@ def _k4_case(rng, B, T, In, H, dtype, dev):
                          nbytes(wx, wh, xs, h0, c0, res[0], res[1], gates,
                                 *cots, *ref_grads), dtype)}
     lib = cudnn_lstm_ms(wx, wh, b, xs, lens, dtype)
-    return fwd_err, grad_abs, grad_rel, times, bnds, lib
+    return fwd_err, grad_abs, grad_rel, times, bnds, lib, kernel_fwd
 
 
 def phase_k4(card: str) -> dict:
@@ -623,21 +731,21 @@ def phase_k4(card: str) -> dict:
     dev = torch.device("cuda")
     summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, B, T, In, H in K4_SHAPES + (K4_EDGE,):
-            before = dict(lstm_layer_train.bwd_routes)
-            fwd_err, grad_abs, grad_rel, ms, bnds, lib = _k4_case(
+        for name, B, T, In, H in LSTM_SHAPES + (LSTM_EDGE,):
+            before = (dict(lstm_layer_train.fwd_routes),
+                      dict(lstm_layer_train.bwd_routes))
+            fwd_err, grad_abs, grad_rel, ms, bnds, lib, fwd = _k4_case(
                 rng, B, T, In, H, dtype, dev)
-            routes = {k: v - before[k]
-                      for k, v in lstm_layer_train.bwd_routes.items()}
-            route = ",".join(k for k, v in routes.items() if v)
+            routes = (routes_taken(lstm_layer_train.fwd_routes, before[0]),
+                      routes_taken(lstm_layer_train.bwd_routes, before[1]))
             worst = max(grad_rel.values())
             log(f"K4 lstm_layer_train {name} B={B} T={T} In={In} H={H} "
                 f"{str(dtype)[6:]}: fwd max|d|={fwd_err:.3e} (tol "
                 f"{K4_FWD_TOL[dtype]:.0e}); grads max|d|={grad_abs:.3e}, "
                 f"max|d|/max|plain| "
                 + " ".join(f"{k}={v:.2e}" for k, v in grad_rel.items())
-                + f" (tol {K4_GRAD_TOL[dtype]:.0e}); backward route {route};"
-                f" kernel fwd "
+                + f" (tol {K4_GRAD_TOL[dtype]:.0e}); routes forward "
+                f"{routes[0]} backward {routes[1]}; kernel fwd "
                 f"{ms['fwd']:.2f} ms bwd {ms['bwd']:.2f} ms, plain fwd "
                 f"{ms['plain_fwd']:.2f} ms bwd {ms['plain_bwd']:.2f} ms, "
                 f"cuDNN LSTM fwd {fmt_ms(lib['fwd'])} bwd "
@@ -648,16 +756,23 @@ def phase_k4(card: str) -> dict:
             if not (fwd_err <= K4_FWD_TOL[dtype]
                     and worst <= K4_GRAD_TOL[dtype]):
                 failures.append(f"{name} {dtype}")
-            if route != "persistent":
-                failures.append(f"{name} {dtype}: backward route {routes}")
+            if routes != ("persistent", "persistent"):
+                failures.append(f"{name} {dtype}: routes {routes}")
             if dtype == torch.bfloat16 and name == "text layer 0":
+                turns = in_turns({r: lambda r=r: fwd(r)
+                                  for r in ("persistent", "per_step")})
+                log(f"K4 forward text layer 0 bf16, both routes in turns: "
+                    f"{fmt_turns(turns)}; cuDNN LSTM fwd {fmt_ms(lib['fwd'])}"
+                    f" [{card}]")
                 summary = {"fwd": {"max_abs_err": fwd_err, "ms": ms["fwd"],
                                    "plain_ms": ms["plain_fwd"], **bnds["fwd"],
-                                   "library_ms": lib["fwd"]},
+                                   "library_ms": lib["fwd"],
+                                   "per_step_ms": min(turns["per_step"])},
                            "bwd": {"max_abs_err": grad_abs, "ms": ms["bwd"],
                                    "plain_ms": ms["plain_bwd"], **bnds["bwd"],
                                    "library_ms": lib["bwd"]}}
-    log(f"K4 backward routes over the phase: {lstm_layer_train.bwd_routes}")
+    log(f"K4 routes over the phase: forward {lstm_layer_train.fwd_routes}, "
+        f"backward {lstm_layer_train.bwd_routes}")
     if failures:
         raise AssertionError(f"K4 kernel and plain disagree: {failures}")
     return summary
@@ -757,17 +872,20 @@ class SyntheticCorpus:
 
 
 TRAIN_BATCHES = 4     # optimizer steps of the measured epoch (>= 3)
-# csrc/lstm_train.cu's kernels by direction, as the profiler names them
-# (gemm_kernel is the forward's input projection in bf16 training)
+# K4's kernels in bf16 training by direction, as the profiler names them:
+# the input projection is tc_gemm_kernel<true, false>, the gradient GEMMs
+# the other two operand layouts
 K4_PROFILE_KERNELS = {
-    "forward": ("::fwd_step_kernel<", "::gemm_kernel<"),
+    "forward": ("::fwd_sweep_kernel<", "::fwd_step_kernel<",
+                "::tc_gemm_kernel<true, false>"),
     "backward": ("::bwd_sweep_kernel<", "::bwd_step_kernel<",
-                 "::tc_gemm_kernel<", "::colsum_kernel(")}
-# one train step of this phase with K4's backward as first written (one
-# launch a step, SIMT gradient GEMMs), ten runs on an NVIDIA H100 80GB HBM3
-# at 700 W: printed beside this run's numbers
-EARLIER_TRAIN_STEP = ("one step 268.8-365.4 ms (median of 3), device busy "
-                      "208.8-210.7 ms, idle share 0.415-0.654 [NVIDIA H100 "
+                 "::tc_gemm_kernel<true, true>",
+                 "::tc_gemm_kernel<false, false>", "::colsum_kernel(")}
+# one train step of this phase with K4's forward as first written (one
+# launch a step, SIMT input GEMM) and the persistent backward, three runs on
+# an NVIDIA H100 80GB HBM3 at 700 W: printed beside this run's numbers
+EARLIER_TRAIN_STEP = ("one step 251.9-255.7 ms (median of 3), device busy "
+                      "175.8-177.2 ms, idle share 0.567-0.609 [NVIDIA H100 "
                       "80GB HBM3, 700.00 W]")
 
 
@@ -788,8 +906,18 @@ def _launches():
 def _reset_launches() -> None:
     lstm_seq.launches = trimodal_attention.launches = 0
     lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
-    lstm_layer_train.bwd_routes = {k: 0 for k in lstm_layer_train.bwd_routes}
+    for counts in (lstm_seq.routes, lstm_layer_train.fwd_routes,
+                   lstm_layer_train.bwd_routes):
+        counts.update(dict.fromkeys(counts, 0))
     V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
+
+
+def check_routes(what: str, routes: dict, launches: int) -> None:
+    """Print a route counter; every one of ``launches`` must be persistent."""
+    log(f"{what} routes {routes} (want {{'persistent': {launches}, "
+        f"'per_step': 0}})")
+    if routes != {"persistent": launches, "per_step": 0}:
+        raise AssertionError(f"{what} routes {routes}")
 
 
 def _device_busy_ms(fn):
@@ -863,10 +991,10 @@ def phase_train(card: str, model) -> dict:
         f"warm-up epoch, their host-to-device copies are included) [{card}]")
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
-    routes = dict(lstm_layer_train.bwd_routes)
-    log(f"train: K4 backward routes {routes} (want all persistent)")
-    if routes["persistent"] != want["lstm_train_bwd"]:
-        raise AssertionError(f"K4 backward routes {routes}")
+    check_routes("train: K4 forward", lstm_layer_train.fwd_routes,
+                 want["lstm_train_fwd"])
+    check_routes("train: K4 backward", lstm_layer_train.bwd_routes,
+                 want["lstm_train_bwd"])
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite training loss {loss}")
 
@@ -935,19 +1063,27 @@ def phase_train(card: str, model) -> dict:
         f", grad norm {norm:.4f}; profiled step wall {wall:.1f} ms, device "
         f"busy {'not measured' if busy is None else f'{busy:.1f} ms'}, "
         f"idle share {idle} [{card}]")
-    log(f"train: the earlier design (one launch a step of K4's backward "
-        f"sweep, SIMT gradient GEMMs) read {EARLIER_TRAIN_STEP}")
+    log(f"train: the earlier design (one launch a step of K4's forward, "
+        f"SIMT input GEMM) read {EARLIER_TRAIN_STEP}")
     if busy is not None:
         averages = prof.key_averages()
         top = averages.table(sort_by="self_device_time_total", row_limit=12)
         for line in top.splitlines():
             log(f"  {line}")
-        k4 = {part: sum(e.self_device_time_total for e in averages
-                        if any(k in e.key for k in kernels)) / 1e3
+        k4 = {part: [e for e in averages
+                     if any(k in e.key for k in kernels)]
               for part, kernels in K4_PROFILE_KERNELS.items()}
+        ms = {part: sum(e.self_device_time_total for e in es) / 1e3
+              for part, es in k4.items()}
         log(f"train: K4 kernels in the profiled step: forward "
-            f"{k4['forward']:.1f} ms, backward {k4['backward']:.1f} ms of "
+            f"{ms['forward']:.1f} ms, backward {ms['backward']:.1f} ms of "
             f"{busy:.1f} ms device busy [{card}]")
+        for part, es in k4.items():
+            log(f"  K4 {part}: " + "; ".join(
+                re.search(r"\w+_kernel(<(true|false), (true|false)>)?",
+                          e.key).group(0)
+                + f" x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+                for e in es))
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -964,6 +1100,8 @@ def phase_train(card: str, model) -> dict:
     if val_launches != val_want or not np.isfinite(val["loss"]):
         raise AssertionError(f"validate launches {val_launches} != "
                              f"{val_want} or non-finite loss")
+    check_routes("train: validate() K1", lstm_seq.routes,
+                 val_want["lstm_seq"])
     return launches
 
 
@@ -1343,6 +1481,7 @@ def phase_calibrate(card: str, serving) -> None:
         f"{want}), {len(req[0]) / wall:.1f} questions/s [{card}]")
     if launches != want or len(questions) != len(req[0]):
         raise AssertionError("the calibrated int8 serving path failed")
+    check_routes("calibrate: K1", lstm_seq.routes, want["lstm_seq"])
 
 
 def main() -> None:
@@ -1366,7 +1505,9 @@ def main() -> None:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
-         "design": "one launch a step, SIMT recurrence and input GEMM",
+         "design": "persistent cooperative sweep (Wh in shared memory, "
+                   "mma.sync h.Wh, grid barrier a step) + mma.sync input "
+                   "GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
          "replaces": "mmqg_tpu/ops/lstm_pallas.py:100",
          "launches": launches["lstm_seq"], **k1},
@@ -1376,7 +1517,8 @@ def main() -> None:
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
          "launches": launches["trimodal_attention"], **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
-         "design": "one launch a step, SIMT input GEMM",
+         "design": "K1's persistent sweep emitting h, c and gates + "
+                   "mma.sync input GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:147",
          "launches": train_launches["lstm_train_fwd"], **k4["fwd"]},

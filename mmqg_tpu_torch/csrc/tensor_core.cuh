@@ -1,11 +1,12 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a), shared by the K3
-// implicit-GEMM conv (vggish_conv.cu) and K4's gradient GEMMs
-// (lstm_train.cu). Two routes:
+// implicit-GEMM conv (vggish_conv.cu) and the LSTM kernels' GEMMs and
+// recurrent products (lstm.cuh: K1's and K4's input projection, K4's
+// gradient GEMMs). Two routes:
 //
 // mma.sync.m16n8k16 (bf16 x bf16 -> f32), fed by ldmatrix from a ring of
 // kStages shared-memory stages that 16-byte cp.async copies fill
-// (zero-fill through cp.async's src-size operand): K4's GEMMs (mma_slice,
-// load_tile). A block of 256 threads owns a kBM x kBN = 128 x 128 output
+// (zero-fill through cp.async's src-size operand): the LSTM GEMMs
+// (mma_slice, load_tile). A block of 256 threads owns a kBM x kBN = 128 x 128 output
 // tile and walks K in steps of kBK = 32; its 8 warps are 2 (M) x 4 (N), each
 // a 64 x 32 sub-tile of 4 x 4 m16n8 accumulators (64 f32 registers a
 // thread). Operand tiles in shared memory, either way round, padded so that

@@ -13,6 +13,7 @@ no fallback: without ``nvcc`` the build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,9 +33,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their argument types: every pointer and the stream are
 # c_void_p (a bare Python int would be cut to 32 bits), every int is c_int.
 SIGNATURES = {
-    "mmqg_lstm_seq": [_P] * 11 + [_I] * 5 + [_P],
+    "mmqg_lstm_seq": [_P] * 12 + [_I] * 6 + [_P],
+    "mmqg_lstm_seq_rows": [_I] * 3,
+    "mmqg_lstm_input_proj": [_P] * 4 + [_I] * 4 + [_P],
+    "mmqg_lstm_barrier_floor": [_P] + [_I] * 3 + [_P],
     "mmqg_trimodal_attention": [_P] * 13 + [_I] * 8 + [_P],
-    "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 6 + [_P],
+    "mmqg_lstm_train_fwd_rows": [_I] * 3,
     "mmqg_lstm_train_bwd": [_P] * 19 + [_I] * 6 + [_P],
     "mmqg_lstm_train_bwd_persistent": [_I] * 3,
     "mmqg_vggish_conv": [_P] * 4 + [_I] * 7 + [_P],
@@ -123,6 +128,39 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded = lib
     return _loaded
+
+
+ROUTES = ("persistent", "per_step")
+
+
+def sweep_rows(entry: str, B: int, H: int, bf16: bool, device: int,
+               force_route: Optional[str] = None) -> int:
+    """How an LSTM recurrence runs at (B, H) on CUDA device ``device``
+    (made current by the caller), decided before any launch: 0 for one
+    launch a step ("per_step"), else the 16-row blocks of the batch each
+    cooperative launch of its sweep takes ("persistent"). By shape, as the
+    C entry ``entry`` says (the backward's says 1: all of them, or 0);
+    ``force_route`` "per_step" gives 0, "persistent" the whole batch in
+    one launch, which the device refuses where it cannot all be
+    resident."""
+    if force_route == "per_step":
+        return 0
+    if force_route == "persistent":
+        return -(-B // 16)
+    return _entry_rows(entry, B, H, bf16, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_rows(entry: str, B: int, H: int, bf16: bool, device: int) -> int:
+    n = getattr(library(), entry)(B, H, int(bf16))
+    if n < 0:
+        raise RuntimeError(f"{entry}: CUDA error {-n} (cudaError_t)")
+    return n
+
+
+def route_of(rows: int) -> str:
+    """The route name of a :func:`sweep_rows` answer."""
+    return ROUTES[0] if rows else ROUTES[1]
 
 
 def check(rc: int, name: str) -> None:

@@ -3,9 +3,11 @@
 Counterpart of ``mmqg_tpu/ops/lstm_pallas.py``: ``lstm_seq`` replaces
 ``lstm_layer_pallas`` and ``lstm_stack`` replaces ``lstm_stack_pallas``.
 On a CUDA tensor :func:`lstm_seq` launches the hand-written kernel in
-``csrc/lstm_seq.cu`` (see its header for the design); on a CPU tensor it
-runs :func:`lstm_seq_plain`, the same function in plain PyTorch. There is no
-other path: any other device raises.
+``csrc/lstm_seq.cu`` (the LSTM forward of ``csrc/lstm.cuh``: see its header
+for the design) by a route picked from the shape; on a CPU tensor it runs
+:func:`lstm_seq_plain`, the same function in plain PyTorch. There is no
+other path: any other device raises, and so does a cooperative launch the
+device refuses.
 
 Numerics (``layers._cell``): operands in the compute dtype, f32 products,
 sums, gates and state. Output h_t is zeroed for t >= length (the Pallas
@@ -15,7 +17,7 @@ length-1 are latched into separate outputs.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -54,13 +56,23 @@ def lstm_seq_plain(xs: Tensor, wx: Tensor, wh: Tensor, b: Tensor,
 
 def lstm_seq(xs: Tensor, wx: Tensor, wh: Tensor, b: Tensor, h0: Tensor,
              c0: Tensor, lengths: Tensor, *,
-             dtype: torch.dtype = torch.bfloat16
+             dtype: torch.dtype = torch.bfloat16,
+             force_route: Optional[str] = None
              ) -> Tuple[Tensor, Tensor, Tensor]:
     """Run one LSTM layer over ``xs (B, T, In)`` with weights ``wx (In, 4H)``,
     ``wh (H, 4H)``, ``b (4H,)``, initial state ``h0``/``c0 (B, H)`` and
     ``lengths (B,)``. Returns (outputs (B, T, H), h at length, c at length),
-    all float32. Counts one launch per call on CUDA (``lstm_seq.launches``).
+    all float32. On CUDA each call counts one launch (``lstm_seq.launches``)
+    and one of its route (``lstm_seq.routes``): "persistent", one
+    cooperative launch for all steps (for each chunk of rows a grid of
+    resident blocks holds), where the shape allows, else "per_step".
+    ``force_route`` replaces that choice (``_build.sweep_rows``):
+    "per_step" runs the earlier design (a yardstick), "persistent" the
+    whole batch in one cooperative launch, which raises where the device
+    refuses it.
     """
+    if force_route not in (None,) + _build.ROUTES:
+        raise ValueError(f"lstm_seq: no route {force_route!r}")
     if xs.device.type == "cpu":
         return lstm_seq_plain(xs, wx, wh, b, h0, c0, lengths, dtype=dtype)
     if xs.device.type != "cuda":
@@ -87,26 +99,33 @@ def lstm_seq(xs: Tensor, wx: Tensor, wh: Tensor, b: Tensor, h0: Tensor,
         raise ValueError(f"lstm_seq: kernel needs H % 8 == 0, H <= 1024 and "
                          f"T >= 1 (H={H}, T={T})")
     lib = _build.library()
-    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=xs.device)
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=xs.device)
+    dev = xs.device
+    xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+    # h in the compute dtype, ping-ponged: h_{t-1} of step t in hbuf[t % 2]
+    hbuf = torch.empty((2, B, H), dtype=dtype, device=dev)
     hbuf[0].copy_(h0)
     c = c0.clone()
-    out = torch.empty((B, T, H), dtype=torch.float32, device=xs.device)
+    sync = torch.empty((1,), dtype=torch.int32, device=dev)  # grid barrier
+    out = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     h_last, c_last = h0.clone(), c0.clone()
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(dev):
+        rows = _build.sweep_rows("mmqg_lstm_seq_rows", B, H,
+                                 dtype == torch.bfloat16,
+                                 torch.cuda.current_device(), force_route)
         rc = lib.mmqg_lstm_seq(
             x.data_ptr(), wxc.data_ptr(), whc.data_ptr(), b.data_ptr(),
             lengths.data_ptr(), xproj.data_ptr(), hbuf.data_ptr(),
-            c.data_ptr(), out.data_ptr(), h_last.data_ptr(),
+            c.data_ptr(), sync.data_ptr(), out.data_ptr(), h_last.data_ptr(),
             c_last.data_ptr(), B, T, In, H, int(dtype == torch.bfloat16),
-            stream)
+            rows, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_seq")
     lstm_seq.launches += 1
+    lstm_seq.routes[_build.route_of(rows)] += 1
     return out, h_last, c_last
 
 
 lstm_seq.launches = 0
+lstm_seq.routes = dict.fromkeys(_build.ROUTES, 0)  # launches by route
 
 
 def lstm_stack(lstm: L.LSTM, xs: Tensor, lengths: Tensor, *,

@@ -5,9 +5,11 @@ replaces its custom-VJP ``lstm_layer_train`` and :func:`lstm_stack_train`
 its ``lstm_stack_train`` (which here also takes the encoders' dropout and
 the state gather at each row's length). The function is a ``torch.autograd.Function``. On a
 CUDA tensor its forward and backward launch the hand-written kernels in
-``csrc/lstm_train.cu`` (see its header for the design); on a CPU tensor
-they run :func:`lstm_train_fwd_plain` and :func:`lstm_train_bwd_plain`, the
-same functions in plain PyTorch. Any other device raises.
+``csrc/lstm_train.cu`` (the forward is K1's, ``csrc/lstm.cuh``: see the
+headers for the design), each by a route picked from the shape
+(``_build.sweep_rows``); on a CPU tensor they run
+:func:`lstm_train_fwd_plain` and :func:`lstm_train_bwd_plain`, the same
+functions in plain PyTorch. Any other device raises.
 
 Semantics are ``layers.lstm_scan`` for one layer: no mask and no latch, so a
 caller gathers the state at each row's length from the returned h and c
@@ -19,7 +21,6 @@ gradients are f32.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -126,7 +127,7 @@ def _kernel_args(wx, wh, xs, h0, c0, dtype):
     return x, wxc, whc
 
 
-def _fwd_kernel(wx, wh, b, xs, h0, c0, dtype):
+def _fwd_kernel(wx, wh, b, xs, h0, c0, dtype, force_route=None):
     x, wxc, whc = _kernel_args(wx, wh, xs, h0, c0, dtype)
     B, T, In = xs.shape
     H = wh.shape[0]
@@ -135,18 +136,26 @@ def _fwd_kernel(wx, wh, b, xs, h0, c0, dtype):
     out = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c_seq = torch.empty_like(out)
     gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+    # h in the compute dtype, ping-ponged: h_{t-1} of step t in hbuf[t % 2]
+    hbuf = torch.empty((2, B, H), dtype=dtype, device=dev)
+    hbuf[0].copy_(h0)
+    sync = torch.empty((1,), dtype=torch.int32, device=dev)  # grid barrier
     hT = torch.empty((B, H), dtype=torch.float32, device=dev)
-    cT = torch.empty_like(hT)
+    cT = c0.clone()  # the kernel's c: c0 on entry, cT on exit
     lib = _build.library()
     with torch.cuda.device(dev):
+        rows = _build.sweep_rows("mmqg_lstm_train_fwd_rows", B, H,
+                                 dtype == torch.bfloat16,
+                                 torch.cuda.current_device(), force_route)
         rc = lib.mmqg_lstm_train_fwd(
             x.data_ptr(), wxc.data_ptr(), whc.data_ptr(), b.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), out.data_ptr(), c_seq.data_ptr(),
-            gates.data_ptr(), hT.data_ptr(), cT.data_ptr(), B, T, In, H,
-            int(dtype == torch.bfloat16),
+            hbuf.data_ptr(), out.data_ptr(), c_seq.data_ptr(),
+            gates.data_ptr(), sync.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+            B, T, In, H, int(dtype == torch.bfloat16), rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_train_fwd")
     lstm_layer_train.fwd_launches += 1
+    lstm_layer_train.fwd_routes[_build.route_of(rows)] += 1
     return out, c_seq, gates, hT, cT
 
 
@@ -193,21 +202,13 @@ def _bwd_kernel(wx, wh, xs, h0, c0, out, c_seq, gates, d_out, d_cseq, d_hT,
 
 
 def bwd_route(B: int, H: int, dtype: torch.dtype) -> str:
-    """The backward sweep's route at (B, H) on the current CUDA device,
-    decided by shape before any launch: "persistent" (one cooperative
-    launch for all steps) when every block of it can be resident at once,
-    else "per_step" (one launch a step, e.g. at H=2048)."""
-    return _bwd_route(B, H, dtype == torch.bfloat16,
-                      torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_route(B: int, H: int, bf16: bool, device: int) -> str:
-    fits = _build.library().mmqg_lstm_train_bwd_persistent(B, H, int(bf16))
-    if fits < 0:
-        raise RuntimeError(f"mmqg_lstm_train_bwd_persistent: CUDA error "
-                           f"{-fits} (cudaError_t)")
-    return "persistent" if fits else "per_step"
+    """The backward's route at (B, H) on the current CUDA device, by shape:
+    "persistent" (one cooperative launch for all steps) when every block of
+    its sweep can be resident at once, else "per_step" (one launch a step,
+    e.g. at B=128 or at H=2048)."""
+    return _build.route_of(_build.sweep_rows(
+        "mmqg_lstm_train_bwd_persistent", B, H, dtype == torch.bfloat16,
+        torch.cuda.current_device()))
 
 
 def _route(device: torch.device, plain, kernel):
@@ -220,8 +221,9 @@ def _route(device: torch.device, plain, kernel):
 
 class _LSTMLayerTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, wx, wh, b, xs, h0, c0, dtype):
-        fwd = _route(xs.device, lstm_train_fwd_plain, _fwd_kernel)
+    def forward(ctx, wx, wh, b, xs, h0, c0, dtype, force_route):
+        fwd = _route(xs.device, lstm_train_fwd_plain,
+                     lambda *a: _fwd_kernel(*a, force_route=force_route))
         out, c_seq, gates, hT, cT = fwd(wx, wh, b, xs, h0, c0, dtype)
         ctx.save_for_backward(wx, wh, xs, h0, c0, out, c_seq, gates)
         ctx.dtype = dtype
@@ -240,28 +242,34 @@ class _LSTMLayerTrain(torch.autograd.Function):
         dwx, dwh, db, dx, dh0, dc0 = bwd(
             wx, wh, xs, h0, c0, out, c_seq, gates, d_out, d_cseq, d_hT, d_cT,
             ctx.dtype)
-        return dwx, dwh, db, dx.to(xs.dtype), dh0, dc0, None
+        return dwx, dwh, db, dx.to(xs.dtype), dh0, dc0, None, None
 
 
 def lstm_layer_train(wx: Tensor, wh: Tensor, b: Tensor, xs: Tensor,
                      h0: Tensor, c0: Tensor,
-                     dtype: torch.dtype = torch.bfloat16
+                     dtype: torch.dtype = torch.bfloat16, *,
+                     force_route: Optional[str] = None
                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """One trainable LSTM layer over ``xs (B, T, In)`` with ``wx (In, 4H)``,
     ``wh (H, 4H)``, ``b (4H,)`` and initial state ``h0``/``c0 (B, H)``.
     Returns (out_seq (B,T,H), c_seq (B,T,H), hT (B,H), cT (B,H)), f32, with
     gradients to every input. On CUDA each forward counts one launch of the
-    forward entry (``lstm_layer_train.fwd_launches``) and each backward one
-    of the backward entry (``.bwd_launches``) and one of its sweep route
-    (``.bwd_routes``)."""
+    forward entry (``lstm_layer_train.fwd_launches``) and one of its route
+    (``.fwd_routes``), each backward one of the backward entry
+    (``.bwd_launches``) and one of its route (``.bwd_routes``).
+    ``force_route`` replaces the forward's choice of route, as
+    :func:`~mmqg_tpu_torch.ops.lstm.lstm_seq`'s does."""
+    if force_route not in (None,) + _build.ROUTES:
+        raise ValueError(f"lstm_layer_train: no route {force_route!r}")
     return _LSTMLayerTrain.apply(wx, wh, b, xs, h0.contiguous(),
-                                 c0.contiguous(), dtype)
+                                 c0.contiguous(), dtype, force_route)
 
 
 lstm_layer_train.fwd_launches = 0
 lstm_layer_train.bwd_launches = 0
-# backward launches by sweep route (see bwd_route)
-lstm_layer_train.bwd_routes = {"persistent": 0, "per_step": 0}
+# launches by route (``_build.sweep_rows``)
+lstm_layer_train.fwd_routes = dict.fromkeys(_build.ROUTES, 0)
+lstm_layer_train.bwd_routes = dict.fromkeys(_build.ROUTES, 0)
 
 
 def gather_at(seq: Tensor, lengths: Tensor) -> Tensor:

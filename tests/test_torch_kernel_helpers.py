@@ -1,12 +1,13 @@
-"""The Python side of the K3 and K4 kernels, on the CPU: K3's K-major
+"""The Python side of the K1, K3 and K4 kernels, on the CPU: K3's K-major
 weight packing and K4's dWh operand ``h_prev_seq`` against their plain
-meaning, and that K4's CPU route (the plain versions) counts no launch and
-no sweep route."""
+meaning, and that K1's and K4's CPU route (the plain versions) counts no
+launch and no sweep route."""
 
 import numpy as np
 import pytest
 import torch
 
+from mmqg_tpu_torch.ops.lstm import lstm_seq
 from mmqg_tpu_torch.ops.lstm_train import h_prev_seq, lstm_layer_train
 from mmqg_tpu_torch.ops.vggish import pack_weights_kmajor
 
@@ -56,10 +57,33 @@ def test_cpu_backward_counts_no_launch_and_no_route():
     leaves = [t(In, 4 * H), t(H, 4 * H), t(4 * H), t(B, T, In), t(B, H),
               t(B, H)]
     before = (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches,
+              dict(lstm_layer_train.fwd_routes),
               dict(lstm_layer_train.bwd_routes))
     out = lstm_layer_train(*leaves, torch.bfloat16)
     out[0].sum().backward()
     assert all(leaf.grad is not None for leaf in leaves)
     assert (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches,
-            lstm_layer_train.bwd_routes) == before
-    assert set(before[2]) == {"persistent", "per_step"}
+            lstm_layer_train.fwd_routes, lstm_layer_train.bwd_routes) == before
+    assert set(before[2]) == set(before[3]) == {"persistent", "per_step"}
+    with pytest.raises(ValueError, match="no route"):
+        lstm_layer_train(*leaves, torch.bfloat16, force_route="fused")
+
+
+@pytest.mark.parametrize("force_route", [None, "per_step"])
+def test_cpu_lstm_seq_counts_no_launch_and_no_route(force_route):
+    """On CPU tensors K1 runs its plain version whatever route is asked."""
+    rng = np.random.RandomState(1)
+    B, T, In, H = 3, 4, 5, 8
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    lens = torch.tensor([4, 1, 2], dtype=torch.int32)
+    args = (t(B, T, In), t(In, 4 * H), t(H, 4 * H), t(4 * H), t(B, H),
+            t(B, H), lens)
+    before = (lstm_seq.launches, dict(lstm_seq.routes))
+    out, h, c = lstm_seq(*args, dtype=torch.float32, force_route=force_route)
+    assert (lstm_seq.launches, lstm_seq.routes) == before
+    assert set(before[1]) == {"persistent", "per_step"}
+    assert out.shape == (B, T, H) and not bool(out[1, 1:].any())
+    with pytest.raises(ValueError, match="no route"):
+        lstm_seq(*args, force_route="fused")

@@ -52,17 +52,46 @@ def _lstm_args(dev, B=20, T=37, In=300, H=64, seed=0):
             torch.from_numpy(rng.randint(1, T + 1, B).astype(np.int32)).to(dev))
 
 
+# (B, T, In, H, forced route or None, the route the call must take): the
+# sweep at the encoders' width (In 300 and 1000), a ragged B that crosses a
+# 16-row tile (at H=256: 32 x 3 blocks, all resident), one step, narrow H;
+# batches larger than one grid of resident blocks, run in row chunks (H=1024
+# at B=20: 128 x 2 blocks; B=130 at H=512: 64 x 9); and the per-step route
+# forced at a shape the sweep takes
+LSTM_ROUTE_CASES = [(20, 37, 300, 64, None, "persistent"),
+                    (33, 1, 300, 64, None, "persistent"),
+                    (32, 17, 300, 512, None, "persistent"),
+                    (32, 17, 1000, 512, None, "persistent"),
+                    (33, 17, 300, 256, None, "persistent"),
+                    (5, 1, 300, 512, None, "persistent"),
+                    (20, 5, 72, 1024, None, "persistent"),
+                    (130, 5, 72, 512, None, "persistent"),
+                    (32, 17, 300, 512, "per_step", "per_step")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T", [(20, 37), (33, 1)])
-def test_lstm_seq_kernel_matches_plain(dev, dtype, B, T):
-    args = _lstm_args(dev, B=B, T=T)
-    before = lstm_seq.launches
-    got = lstm_seq(*args, dtype=dtype)
-    assert lstm_seq.launches == before + 1
+@pytest.mark.parametrize("B,T,In,H,force,route", LSTM_ROUTE_CASES)
+def test_lstm_seq_kernel_matches_plain(dev, dtype, B, T, In, H, force,
+                                       route):
+    args = _lstm_args(dev, B=B, T=T, In=In, H=H)
+    before = lstm_seq.launches, dict(lstm_seq.routes)
+    got = lstm_seq(*args, dtype=dtype, force_route=force)
+    assert lstm_seq.launches == before[0] + 1
+    assert {k: v - before[1][k] for k, v in lstm_seq.routes.items()} == {
+        "persistent": int(route == "persistent"),
+        "per_step": int(route == "per_step")}
     ref = lstm_seq_plain(*args, dtype=dtype)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert float((g - r).abs().max()) <= K1_TOL[dtype]
+
+
+def test_lstm_seq_refused_cooperative_launch_raises(dev):
+    """The whole batch forced into one cooperative launch where its blocks
+    cannot all be resident: the device refuses it and the wrapper raises."""
+    args = _lstm_args(dev, B=20, T=5, In=72, H=1024)
+    with pytest.raises(RuntimeError, match="mmqg_lstm_seq: CUDA error"):
+        lstm_seq(*args, dtype=torch.float32, force_route="persistent")
 
 
 def test_lstm_seq_kernel_rejects_what_it_cannot_take(dev):
@@ -118,9 +147,9 @@ def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
 K4_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 2e-2)}
 
 
-def _k4_check(dev, B, T, In, H, dtype, seed=3):
+def _k4_check(dev, B, T, In, H, dtype, seed=3, force=None):
     """Forward + backward kernels vs plain at one shape; returns the
-    backward routes the call took."""
+    forward and the backward routes the call took."""
     rng = np.random.RandomState(seed)
 
     def t(*shape, s=1.0):
@@ -131,13 +160,15 @@ def _k4_check(dev, B, T, In, H, dtype, seed=3):
     cots = [t(B, T, H), t(B, T, H), t(B, H), t(B, H)]
     leaves = [a.clone().requires_grad_(True) for a in args]
     before = (lstm_layer_train.fwd_launches, lstm_layer_train.bwd_launches,
+              dict(lstm_layer_train.fwd_routes),
               dict(lstm_layer_train.bwd_routes))
-    outs = lstm_layer_train(*leaves, dtype)
+    outs = lstm_layer_train(*leaves, dtype, force_route=force)
     torch.autograd.backward(outs, cots)
     assert (lstm_layer_train.fwd_launches,
             lstm_layer_train.bwd_launches) == (before[0] + 1, before[1] + 1)
-    routes = {k: v - before[2][k]
-              for k, v in lstm_layer_train.bwd_routes.items()}
+    routes = [{k: v - was[k] for k, v in now.items()}
+              for now, was in ((lstm_layer_train.fwd_routes, before[2]),
+                               (lstm_layer_train.bwd_routes, before[3]))]
     out, cseq, gates, hT, cT = lstm_train_fwd_plain(*args, dtype)
     ref = lstm_train_bwd_plain(args[0], args[1], args[3], args[4], args[5],
                                out, cseq, gates, *cots, dtype)
@@ -158,24 +189,33 @@ def test_lstm_layer_train_kernels_match_plain(dev, B, T, In, H):
     _k4_check(dev, B, T, In, H, torch.float32, seed=2)
 
 
+ONE = {"persistent": 1, "per_step": 0}
+STEP = {"persistent": 0, "per_step": 1}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,In,H", [(5, 1, 300, 512), (32, 17, 300, 512),
-                                      (8, 9, 1000, 512)])
+@pytest.mark.parametrize("B,T,In,H,force", [
+    (5, 1, 300, 512, None), (32, 17, 300, 512, None),
+    (32, 17, 1000, 512, None), (33, 17, 300, 256, None),
+    (8, 9, 1000, 512, None), (32, 17, 300, 512, "per_step")])
 def test_lstm_layer_train_backward_at_the_encoders_width(dev, B, T, In, H,
-                                                         dtype):
-    """The persistent sweep and the gradient GEMMs (tensor cores in bf16)
-    at H=512: one step (the barrier's edge), ragged B and In = 300."""
-    routes = _k4_check(dev, B, T, In, H, dtype)
-    assert routes == {"persistent": 1, "per_step": 0}
+                                                         dtype, force):
+    """The persistent sweeps, forward and backward, and the tensor-core
+    GEMMs in bf16 at H=512: one step (the barriers' edge), In = 300 and
+    1000, a ragged B that crosses a 16-row tile (H=256); the forward forced
+    onto the per-step route, feeding the same backward."""
+    fwd, bwd = _k4_check(dev, B, T, In, H, dtype, force=force)
+    assert (fwd, bwd) == (STEP if force else ONE, ONE)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lstm_layer_train_backward_per_step_route(dev, dtype):
-    """H=1024 at B=20 needs 128 x 2 sweep blocks, more than can be
-    resident: the wrapper takes the per-step route, which writes the same
-    da (and its bf16 copy for the GEMMs)."""
-    routes = _k4_check(dev, 20, 5, 72, 1024, dtype)
-    assert routes == {"persistent": 0, "per_step": 1}
+@pytest.mark.parametrize("B,H", [(20, 1024), (130, 512)])
+def test_lstm_layer_train_backward_per_step_route(dev, dtype, B, H):
+    """Shapes whose backward sweep cannot be resident (H=1024 at B=20:
+    128 x 2 blocks; B=130 at H=512: 64 x 9): the backward takes the
+    per-step route, which writes the same da (and its bf16 copy for the
+    GEMMs); the forward's sweep runs in row chunks."""
+    assert _k4_check(dev, B, 5, 72, H, dtype) == [ONE, STEP]
 
 
 def test_lstm_layer_train_kernel_rejects_what_it_cannot_take(dev):
