@@ -11,10 +11,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             be the persistent sweep; at text layer 0 bf16 the persistent and
             per-step routes timed in turns beside cuDNN, the input GEMM
             alone, the sweep's barrier floor and the routes at B=128
-4. K2       trimodal_attention kernel vs its plain version, on the card
+4. K2       trimodal_attention's tiled route vs its plain version, on the
+            card, at B = 1, 32, 33 and 128 and lengths random, 1, L and
+            L - 3; at B=32 and 128 the tiled and the first (per_row) route
+            timed in turns
 5. main     QGPipeline at the flagship's full width (random weights from a
             seed) answers 32 greedy requests; K1 must launch 4x per encode,
-            each by the persistent route, and K2 21x per decode
+            each by the persistent route, K2 21x per decode by the tiled
+            route, and the int8 conv 5x (s8 route) and quantize_s8 5x per
+            encode
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
 7. K4       lstm_layer_train forward + backward kernels vs their plain
@@ -37,11 +42,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             conv2..conv6 stack timed beside it, and in bf16 at two ragged
             sizes (1 and 37 examples); then the K3 path,
             AudioEncoder.forward(use_kernel=True), must launch it 5x
-11. int8    vggish_conv_int8 vs its plain version on the same batch's
-            quantized inputs, each of the five layers, dynamic and static
-            scales: max |d| must be 0
+11. int8    vggish_conv_int8 (the s8 tensor-core route and the forced
+            __dp4a one, timed in turns) vs its plain version on the same
+            batch's quantized inputs, each of the five layers, dynamic and
+            static scales: max |d| must be 0; the fused next-layer quantize
+            and quantize_s8 vs quantize_activations: identical int8 and
+            scales; the whole int8 stack (quantizes included) new vs old in
+            turns, and at 1 and 37 examples; torch._int_mm as a yardstick
 12. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
-            generate() with the static scales
+            generate() with the static scales (quantize_s8 once: the later
+            quantizes are the convs' epilogues)
 
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
@@ -72,6 +82,7 @@ from typing import List
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
@@ -115,6 +126,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names, iters: int = 50) -> float:
+    """Mean device time in ms of one kernel whose name contains one of
+    ``names``, over ``iters`` calls of ``fn()`` (one such launch each),
+    from torch.profiler's CUDA activity: the kernels alone, without the
+    gaps between launches that CUDA events count when the host, not the
+    device, sets the pace. The mean is over the kernel records the
+    profiler kept, so a dropped record does not bias it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in names)]
+    if not spans:
+        raise AssertionError(f"the profiler saw no device time in {names}")
+    if len(spans) != iters:
+        log(f"  device_ms: {len(spans)} kernel records of {iters} launches")
+    return sum(spans) / len(spans) / 1e3
 
 
 def max_abs(a, b) -> float:
@@ -178,7 +214,6 @@ LSTM_SHAPES = (("text layer 0", 32, 283, 300, 512),
                ("text layer 1", 32, 283, 512, 512),
                ("video", 32, 101, 1000, 512))
 LSTM_EDGE = ("edge", 5, 1, 300, 512)
-ROUND_TRIP = ("persistent", "per_step", "per_step", "persistent")
 
 
 def routes_taken(counts: dict, before: dict) -> str:
@@ -186,12 +221,13 @@ def routes_taken(counts: dict, before: dict) -> str:
     return ",".join(k for k, v in counts.items() if v - before[k])
 
 
-def in_turns(fns: dict) -> dict:
-    """{route: [ms, ms]}: each route's callable timed twice, in the order
-    persistent, per_step, per_step, persistent."""
+def in_turns(fns: dict, iters: int = 5) -> dict:
+    """{route: [ms, ms]}: each of two routes' callables timed twice, in the
+    order a, b, b, a (the dict's order; persistent, per_step for K1/K4)."""
+    a, b = fns
     out = {}
-    for name in ROUND_TRIP:
-        out.setdefault(name, []).append(cuda_ms(fns[name], iters=5))
+    for name in (a, b, b, a):
+        out.setdefault(name, []).append(cuda_ms(fns[name], iters=iters))
     return out
 
 
@@ -387,7 +423,15 @@ def phase_k1(card: str) -> dict:
     return dict(summary, barrier_floor_ms=barriers)
 
 
-def _k2_case(rng, B, dtype, dev):
+# (B, lengths) of the K2 phase: the decode's batch and a later benchmark's
+# (timed, both routes in turns), a lone row, a ragged batch tile (33 rows),
+# and lengths 1, L and L - 3 (not a multiple of the tiled route's
+# 16-position chunk)
+K2_CASES = ((32, "random"), (128, "random"), (1, "random"), (33, "random"),
+            (32, "one"), (33, "full"), (33, "ragged"))
+
+
+def _k2_case(rng, B, dtype, dev, lengths="random"):
     Dq, Lt, La, Ht, Hv, Ha = 812, 283, 101, 512, 512, 128
 
     def t(a, dt=dtype):
@@ -396,16 +440,19 @@ def _k2_case(rng, B, dtype, dev):
     b = t(rng.randn(Lt + 2 * La), torch.float32)
     q = t(rng.randn(B, Dq))
     mems = [t(rng.randn(B, L, Hm)) for L, Hm in ((Lt, Ht), (La, Hv), (La, Ha))]
-    lens = [torch.from_numpy(rng.randint(1, L + 1, B).astype(np.int32)).to(dev)
+    lens = [torch.from_numpy((rng.randint(1, L + 1, B) if lengths == "random"
+                              else np.full(B, {"one": 1, "full": L,
+                                               "ragged": L - 3}[lengths])
+                              ).astype(np.int32)).to(dev)
             for L in (Lt, La, La)]
     args = (w_t, b, q, *mems, *lens)
+    before = dict(trimodal_attention.routes)
     got = trimodal_attention(*args)
+    route = routes_taken(trimodal_attention.routes, before)
     ref = trimodal_attention_plain(*args)
     torch.cuda.synchronize()
     err = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
     err = max([err] + [max_abs(got[3][k], ref[3][k]) for k in got[3]])
-    ms = cuda_ms(lambda: trimodal_attention(*args), iters=50)
-    plain_ms = cuda_ms(lambda: trimodal_attention_plain(*args), iters=20)
     # the weights and query once, each memory row below its length once
     # (the kernel skips the rest), the contexts and maps written once
     rows = [int(n.clamp(max=m.shape[1]).sum()) for n, m in zip(lens, mems)]
@@ -416,27 +463,55 @@ def _k2_case(rng, B, dtype, dev):
     bnd = bound(ops, nbytes(w_t, b, q, *lens, *got[:3], got[3]["text"],
                             got[3]["video"], got[3]["audio"]) + mem_bytes,
                 dtype)
-    return err, ms, plain_ms, bnd
+    return err, route, args, bnd
 
 
 def phase_k2(card: str) -> dict:
+    """The tiled route against the plain version at every K2_CASES entry,
+    f32 and bf16; at B=32 and 128 with random lengths the tiled and the
+    first (per_row) route timed in turns beside the plain version: each
+    kernel's device time (torch.profiler), and the wrapper's calls back to
+    back (CUDA events; the host sets that pace)."""
     rng = np.random.RandomState(SEED + 1)
     dev = torch.device("cuda")
-    summary = {}
+    summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (32, 128):
-            err, ms, plain_ms, bnd = _k2_case(rng, B, dtype, dev)
-            log(f"K2 trimodal_attention B={B} Dq=812 L=283/101/101 "
-                f"{str(dtype)[6:]}: max|d|={err:.3e} (tol "
-                f"{K2_TOL[dtype]:.0e}) kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}; no library call computes it) [{card}]")
-            if not err <= K2_TOL[dtype]:
-                raise AssertionError(f"K2 B={B} {dtype}: max|d| {err} > "
-                                     f"{K2_TOL[dtype]}")
-            if dtype == torch.bfloat16 and B == 32:
-                summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           **bnd, "library_ms": None}
+        for B, lengths in K2_CASES:
+            err, route, args, bnd = _k2_case(rng, B, dtype, dev, lengths)
+            line = (f"K2 trimodal_attention B={B} Dq=812 L=283/101/101 "
+                    f"lengths {lengths} {str(dtype)[6:]}: route {route}; "
+                    f"max|d|={err:.3e} (tol {K2_TOL[dtype]:.0e})")
+            if lengths == "random" and B in (32, 128):
+                kernel = {"tiled": ("attn_tile_kernel",),
+                          "per_row": ("trimodal_attention_kernel",)}
+                dev_turns, call_turns = {}, {}
+                for r in ("tiled", "per_row", "per_row", "tiled"):
+                    def call(r=r):
+                        return trimodal_attention(*args, force_route=r)
+                    dev_turns.setdefault(r, []).append(
+                        device_ms(call, kernel[r]))
+                    call_turns.setdefault(r, []).append(
+                        cuda_ms(call, iters=50))
+                plain_ms = cuda_ms(lambda: trimodal_attention_plain(*args),
+                                   iters=20)
+                line += (f"; device time in turns: {fmt_turns(dev_turns)}; "
+                         f"calls back to back (host-paced): "
+                         f"{fmt_turns(call_turns)}; plain {plain_ms:.4f} ms;"
+                         f" bound {bnd['bound_ms']:.4f} ms "
+                         f"({bnd['bound_by']}; no library call computes it)")
+                if dtype == torch.bfloat16 and B == 32:
+                    summary = {"max_abs_err": err,
+                               "ms": min(dev_turns["tiled"]),
+                               "plain_ms": plain_ms, **bnd,
+                               "library_ms": None,
+                               "per_row_ms": min(dev_turns["per_row"]),
+                               "call_ms": min(call_turns["tiled"])}
+            log(f"{line} [{card}]")
+            if not err <= K2_TOL[dtype] or route != "tiled":
+                failures.append(f"B={B} {lengths} {dtype}: max|d| {err} "
+                                f"route {route}")
+    if failures:
+        raise AssertionError(f"K2 kernel and plain disagree: {failures}")
     return summary
 
 
@@ -559,14 +634,19 @@ def phase_main(card: str, model) -> dict:
     launches = _launches()
     want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
                 trimodal_attention=mc.target_steps - 1,
-                vggish_conv_int8=len(V.POOLS))
+                vggish_conv_int8=len(V.POOLS), quantize_s8=len(V.POOLS))
     log(f"main: one generate() of {N_REQUESTS} requests launched {launches}"
-        f" (want {want}: {mc.text_layers} text layers + 1 video layer and "
-        f"{len(V.POOLS)} int8 convs per encode, {mc.target_steps - 1} "
-        "attention steps per decode)")
+        f" (want {want}: {mc.text_layers} text layers + 1 video layer, "
+        f"{len(V.POOLS)} int8 convs and {len(V.POOLS)} activation quantizes"
+        f" (dynamic scales) per encode, {mc.target_steps - 1} attention "
+        "steps per decode)")
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     check_routes("main: K1", lstm_seq.routes, want["lstm_seq"])
+    check_only_route("main: K2", trimodal_attention.routes, "tiled",
+                     want["trimodal_attention"])
+    check_only_route("main: int8 conv", V.conv3x3_relu_int8.routes, "wgmma",
+                     want["vggish_conv_int8"])
     if len(questions) != N_REQUESTS or not all(
             isinstance(q, str) for q in questions):
         raise AssertionError("generate() did not return one string a request")
@@ -590,6 +670,25 @@ def phase_main(card: str, model) -> dict:
             + f" ms (medians of 3; runs in the order int8, bf16, bf16, int8;"
             f" caps audio={caps['audio_cap']} frames={caps['frames_cap']}) "
             f"[{card}]")
+
+    # one decode under torch.profiler: wall, device busy, idle share, and
+    # K2's share of the device time
+    host = pipe._pack(*req)
+    mem, st = DEC.encode(pipe.model, mc, pipe._to_device(host),
+                         audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                         frames_cap=DEC.frames_bucket(mc, host["frames_len"]),
+                         dtype=pipe.dtype)
+    wall, busy, prof = _device_busy_ms(lambda: DEC.decode_from_memories(
+        pipe.model, mem, st, max_len=mc.target_steps - 1, dtype=pipe.dtype))
+    k2 = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and "attn_tile_kernel" in e.name]
+    log(f"main: one greedy decode ({mc.target_steps - 1} steps) under "
+        f"torch.profiler: wall {wall:.2f} ms, device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+        + f"; K2 {sum(k2) / 1e3:.3f} ms of device time in {len(k2)} launches"
+        f" [{card}]")
 
     mem, toks, logits = _encode_decode(pipe, req)
     finite = all(bool(torch.isfinite(m).all()) for m in mem[:3])
@@ -891,7 +990,7 @@ EARLIER_TRAIN_STEP = ("one step 251.9-255.7 ms (median of 3), device busy "
 
 ZERO_LAUNCHES = {"lstm_seq": 0, "trimodal_attention": 0,
                  "lstm_train_fwd": 0, "lstm_train_bwd": 0, "vggish_conv": 0,
-                 "vggish_conv_int8": 0}
+                 "vggish_conv_int8": 0, "quantize_s8": 0}
 
 
 def _launches():
@@ -900,16 +999,28 @@ def _launches():
             "lstm_train_fwd": lstm_layer_train.fwd_launches,
             "lstm_train_bwd": lstm_layer_train.bwd_launches,
             "vggish_conv": V.vggish_conv.launches,
-            "vggish_conv_int8": V.conv3x3_relu_int8.launches}
+            "vggish_conv_int8": V.conv3x3_relu_int8.launches,
+            "quantize_s8": V.quantize_s8.launches}
 
 
 def _reset_launches() -> None:
     lstm_seq.launches = trimodal_attention.launches = 0
     lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
     for counts in (lstm_seq.routes, lstm_layer_train.fwd_routes,
-                   lstm_layer_train.bwd_routes):
+                   lstm_layer_train.bwd_routes, trimodal_attention.routes,
+                   V.conv3x3_relu_int8.routes):
         counts.update(dict.fromkeys(counts, 0))
     V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
+    V.quantize_s8.launches = 0
+
+
+def check_only_route(what: str, routes: dict, route: str,
+                     launches: int) -> None:
+    """Print a route counter; all ``launches`` must have taken ``route``."""
+    want = {r: launches if r == route else 0 for r in routes}
+    log(f"{what} routes {routes} (want {want})")
+    if routes != want:
+        raise AssertionError(f"{what} routes {routes}")
 
 
 def check_routes(what: str, routes: dict, launches: int) -> None:
@@ -924,7 +1035,6 @@ def _device_busy_ms(fn):
     """(wall ms, device-busy ms or None) of ``fn()`` under torch.profiler:
     the union of the CUDA kernel and copy intervals. None when the
     profiler sees no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1093,7 +1203,7 @@ def phase_train(card: str, model) -> dict:
     # validation encodes as serving does: the int8 VGGish on the card
     val_want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
                     trimodal_attention=mc.target_steps,
-                    vggish_conv_int8=len(V.POOLS))
+                    vggish_conv_int8=len(V.POOLS), quantize_s8=len(V.POOLS))
     log(f"train: validate() of {B} samples launched {val_launches} (want "
         f"{val_want}), loss {val['loss']:.4f} bleu {val['bleu']:.4f}, "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
@@ -1395,60 +1505,228 @@ def phase_k3(card: str, serving) -> dict:
     return dict(summary, launches=launches["vggish_conv"])
 
 
+def _int8_stack_dp4a(convs, x1, scales, dtype):
+    """conv2..conv6 as the int8 tower ran them before the s8 kernel: each
+    layer's quantize as plain tensor operations on the card, then the
+    __dp4a kernel (force_route="dp4a")."""
+    x = x1
+    for i, (c, pool) in enumerate(zip(convs[1:], V.POOLS)):
+        wq, sw = V.quantize_weights(c.w)
+        xq, sx = V.quantize_activations(x, scales[i])
+        x = V.conv3x3_relu_int8(xq, wq, sx, sw, c.b, pool=pool, dtype=dtype,
+                                force_route="dp4a")
+    return x
+
+
+def _int8_stack_plain(convs, x1, scales, dtype):
+    """conv2..conv6 through the plain versions (quantize_activations,
+    conv3x3_relu_int8_plain)."""
+    x = x1
+    for i, (c, pool) in enumerate(zip(convs[1:], V.POOLS)):
+        wq, sw = V.quantize_weights(c.w)
+        xq, sx = V.quantize_activations(x, scales[i])
+        x = V.conv3x3_relu_int8_plain(xq, wq, sx, sw, c.b, pool=pool,
+                                      dtype=dtype)
+    return x
+
+
+def _witness(what: str, got, ref) -> str:
+    """Where ``got`` and ``ref`` differ most, or "" where they are equal."""
+    d = (got.float() - ref.float()).abs()
+    if float(d.max()) == 0:
+        return ""
+    at = tuple(int(a) for a in np.unravel_index(int(d.argmax()), d.shape))
+    return (f"; {what} witness at {at}: kernel {float(got[at])!r} plain "
+            f"{float(ref[at])!r}")
+
+
+def _int_mm_yardstick(xq, wq, layer_ms: float, card: str) -> None:
+    """torch._int_mm (the library's int8 GEMM, int32 out) on a layer's
+    im2col'd product, timed alone beside the s8 kernel's ``layer_ms``: how
+    far the card's own int8 GEMM gets on the same M x K x N. A yardstick,
+    not the conv (no im2col, no epilogue); the port never calls it."""
+    N, H, W, Cin = xq.shape
+    Cout = wq.shape[-1]
+    xp = torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1))
+    a = torch.cat([xp[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                   for dx in range(3)], dim=3).reshape(N * H * W, 9 * Cin)
+    b = V.pack_weights_kmajor(wq, torch.int8).reshape(Cout, 9 * Cin).t()
+    M, K = a.shape
+    try:
+        ms = cuda_ms(lambda: torch._int_mm(a, b), iters=5)
+    except RuntimeError as e:   # a yardstick only
+        log(f"int8 yardstick: torch._int_mm refused: "
+            f"{str(e).splitlines()[0]}")
+        return
+    ops = 2 * M * K * Cout
+    rate, conv_rate = ops / ms / 1e9, ops / layer_ms / 1e9
+    log(f"int8 yardstick: torch._int_mm on conv4's im2col'd product (M={M}"
+        f" K={K} N={Cout}, int32 out) {ms:.3f} ms ({rate:.0f} TOP/s); the "
+        f"s8 conv kernel {layer_ms:.3f} ms ({conv_rate:.0f} TOP/s) [{card}]")
+    del a
+
+
 def phase_int8(card: str, serving) -> dict:
-    """vggish_conv_int8 vs its plain version on the serving batch's
-    quantized activations, layer by layer (bf16 out, as served), with
-    dynamic and with calibrated static scales. Both sum exactly and apply
-    the same f32 epilogue, so max |d| must be 0; a nonzero one prints its
-    witness."""
+    """The int8 tower's conv2..conv6 on the serving batch (bf16 out, as
+    served), with dynamic and with calibrated static scales. Per layer, on
+    the plain chain's int8 input: the s8 tensor-core kernel and the forced
+    __dp4a route against the plain version (max |d| must be 0; a nonzero
+    one prints its witness), timed in turns; the fused next-layer quantize
+    against quantize_activations (identical int8 and scales) and the input
+    quantize kernel's time. Then the whole stack, conv1-pool output to
+    conv6 output with its quantizes, new (V.int8_convs) against old (plain
+    quantize + __dp4a) in turns, at the serving batch and ragged batches of
+    1 and 37 examples; and torch._int_mm as a yardstick."""
     pipe, _, mel, _ = serving
-    enc = pipe.model.audio_enc
+    convs = pipe.model.audio_enc.convs
     flat = mel.reshape((-1,) + mel.shape[2:])
     dtype = torch.bfloat16
-    scales = enc.calibrate_int8_scales(flat)
-    x1 = V.conv1_pool(enc.convs, flat, dtype)
-    worst, ms, plain_ms, ops, nb = 0.0, 0.0, 0.0, 0, 0
-    for mode, sc in (("dynamic", (None,) * len(V.POOLS)), ("static", scales)):
+    scales = tuple(pipe.model.audio_enc.calibrate_int8_scales(flat))
+    x1 = V.conv1_pool(convs, flat, dtype)
+    modes = (("dynamic", (None,) * len(V.POOLS)), ("static", scales))
+    tot = dict.fromkeys(("ms", "dp4a_ms", "plain_ms", "q_ms", "q_plain_ms"),
+                        0.0)
+    ops = nb = q_ops = q_nb = 0
+    worst, failures = 0.0, []
+    for mode, sc in modes:
         x = x1
-        for i, (c, pool) in enumerate(zip(enc.convs[1:], V.POOLS)):
+        for i, (c, pool) in enumerate(zip(convs[1:], V.POOLS)):
             wq, sw = V.quantize_weights(c.w)
             xq, sx = V.quantize_activations(x, sc[i])
+            # the input's quantize kernel: conv2's takes the max itself;
+            # later ones take the max their conv folded (dynamic) or are
+            # the conv's epilogue (static)
+            if i == 0 or mode == "dynamic":
+                amax = None if i == 0 else x.float().amax(dim=(1, 2, 3))
+
+                def quant():
+                    return V.quantize_s8(x, sc[i], amax=amax)
+                gq, gs = quant()
+                same = torch.equal(gq, xq) and torch.equal(gs, sx)
+                q_ms = cuda_ms(quant, iters=5)
+                qp_ms = cuda_ms(lambda: V.quantize_activations(x, sc[i]),
+                                iters=5)
+                qtxt = (f"input quantize_s8 {q_ms:.3f} ms (plain {qp_ms:.3f} "
+                        f"ms), identical int8 and scales {same}")
+                if not same:
+                    failures.append(f"conv{i + 2} {mode} input quantize")
+                if mode == "dynamic":
+                    tot["q_ms"] += q_ms
+                    tot["q_plain_ms"] += qp_ms
+                    q_ops += 2 * x.numel()   # a division and a rounding
+                    q_nb += nbytes(x, xq, sx)
+            else:
+                qtxt = f"input quantize in conv{i + 1}'s epilogue"
             args = (xq, wq, sx, sw, c.b)
             got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
+            old = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype,
+                                      force_route="dp4a")
             ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
             torch.cuda.synchronize()
-            d = (got.float() - ref.float()).abs()
-            err = float(d.max())
-            worst = max(worst, err)
-            line = (f"int8 vggish_conv_int8 conv{i + 2} {tuple(xq.shape)} -> "
-                    f"{c.w.shape[-1]} pool={pool} {mode} scales: max|d|="
-                    f"{err:.3e} (want 0) of max {float(ref.float().abs().max()):.3e}")
-            if err > 0:
-                at = np.unravel_index(int(d.argmax()), d.shape)
-                line += (f"; witness at {tuple(int(a) for a in at)}: kernel "
-                         f"{float(got[at])!r} plain {float(ref[at])!r}")
+            err, err_old = max_abs(got, ref), max_abs(old, ref)
+            worst = max(worst, err, err_old)
+            line = (f"int8 conv{i + 2} {tuple(xq.shape)} -> {c.w.shape[-1]} "
+                    f"pool={pool} {mode}: wgmma max|d|={err:.3e} dp4a "
+                    f"max|d|={err_old:.3e} (want 0) of max "
+                    f"{float(ref.float().abs().max()):.3e}"
+                    + _witness("wgmma", got, ref) + _witness("dp4a", old, ref))
+            if i + 1 < len(V.POOLS):
+                def fused():
+                    return V.conv3x3_relu_int8_quant(*args, pool=pool,
+                                                     dtype=dtype,
+                                                     next_scale=sc[i + 1])
+                fq, fs = fused()
+                rq, rs = V.quantize_activations(ref, sc[i + 1])
+                same = torch.equal(fq, rq) and torch.equal(fs, rs)
+                line += (f"; fused next quantize identical int8 and scales "
+                         f"{same}, conv + next quantize as the path runs them"
+                         f" {cuda_ms(fused, iters=3):.3f} ms")
+                if not same:
+                    failures.append(f"conv{i + 2} {mode} fused quantize")
+            turns = in_turns({
+                "wgmma": lambda: V.conv3x3_relu_int8(*args, pool=pool,
+                                                     dtype=dtype),
+                "dp4a": lambda: V.conv3x3_relu_int8(*args, pool=pool,
+                                                    dtype=dtype,
+                                                    force_route="dp4a")},
+                iters=3)
+            line += f"; {fmt_turns(turns)} in turns; {qtxt}"
             if mode == "dynamic":
-                k = cuda_ms(lambda: V.conv3x3_relu_int8(*args, pool=pool,
-                                                        dtype=dtype),
-                            iters=3, warmup=1)
                 p = cuda_ms(lambda: V.conv3x3_relu_int8_plain(
                     *args, pool=pool, dtype=dtype), iters=1, warmup=1)
-                ms, plain_ms = ms + k, plain_ms + p
+                line += f"; plain {p:.2f} ms"
+                tot["ms"] += min(turns["wgmma"])
+                tot["dp4a_ms"] += min(turns["dp4a"])
+                tot["plain_ms"] += p
                 N, H, W, Cin = xq.shape
                 ops += 2 * N * H * W * 9 * Cin * c.w.shape[-1]
                 nb += nbytes(*args, got)
-                line += f"; kernel {k:.2f} ms plain {p:.2f} ms"
             log(f"{line} [{card}]")
+            if mode == "dynamic" and i == 2:
+                _int_mm_yardstick(xq, wq, min(turns["wgmma"]), card)
             x = ref
     bnd = bound(ops, nb, torch.int8)
-    log(f"int8 conv2..conv6 (dynamic): kernel {ms:.2f} ms plain {plain_ms:.2f}"
-        f" ms bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); no PyTorch "
-        f"call runs an int8 conv on CUDA; static scales {scales} [{card}]")
-    if worst != 0.0:
-        raise AssertionError(f"vggish_conv_int8 and its plain version differ"
-                             f" by {worst}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+    q_bnd = bound(q_ops, q_nb, torch.float32)
+
+    def weights():   # what each encode redoes per layer, as JAX does
+        for c in convs[1:]:
+            V.pack_weights_kmajor(V.quantize_weights(c.w)[0], torch.int8)
+    w_ms = cuda_ms(weights, iters=5)
+    n_w = sum(c.w.numel() for c in convs[1:])
+    log(f"int8 weight quantize per encode (quantize_weights + the K-major "
+        f"pack, conv2..conv6, {n_w} f32 weights): {w_ms:.3f} ms [{card}]")
+    log(f"int8 conv2..conv6 (dynamic, each layer alone): wgmma "
+        f"{tot['ms']:.2f} ms dp4a {tot['dp4a_ms']:.2f} ms plain "
+        f"{tot['plain_ms']:.2f} ms bound {bnd['bound_ms']:.3f} ms "
+        f"({bnd['bound_by']}); no PyTorch call runs an int8 conv on CUDA; "
+        f"input quantizes (5 quantize_s8 launches) {tot['q_ms']:.3f} ms, "
+        f"plain {tot['q_plain_ms']:.3f} ms, bound {q_bnd['bound_ms']:.3f} "
+        f"ms; static scales {scales} [{card}]")
+
+    # the whole stack as encode runs it, old and new
+    stack = {}
+    for mode, sc in modes:
+        act = None if mode == "dynamic" else sc
+        for n in (x1.shape[0], 1, 37):
+            xs = x1[:n]
+            _reset_launches()
+            got = V.int8_convs(convs, xs, dtype=dtype, act_scales=act)
+            launched = (V.conv3x3_relu_int8.launches, V.quantize_s8.launches)
+            ref = _int8_stack_plain(convs, xs, sc, dtype)
+            torch.cuda.synchronize()
+            err = max_abs(got, ref)
+            worst = max(worst, err)
+            want = (len(V.POOLS), len(V.POOLS) if act is None else 1)
+            line = (f"int8 stack conv1-pool output -> conv6 output N={n} "
+                    f"{mode} (conv5/conv6: 96 positions an example, so "
+                    f"128-row tiles straddle examples): int8_convs max|d|="
+                    f"{err:.3e} (want 0), launches"
+                    f" (int8 conv, quantize) {launched} (want {want})"
+                    + _witness("stack", got, ref))
+            if err != 0 or launched != want:
+                failures.append(f"stack N={n} {mode}")
+            if n == x1.shape[0]:
+                turns = in_turns({
+                    "new": lambda: V.int8_convs(convs, xs, dtype=dtype,
+                                                act_scales=act),
+                    "old": lambda: _int8_stack_dp4a(convs, xs, sc, dtype)},
+                    iters=3)
+                stack[mode] = turns
+                line += (f"; new (quantize_s8 + s8 conv, quantize fused) vs "
+                         f"old (plain quantize + dp4a) in turns: "
+                         f"{fmt_turns(turns)}")
+            log(f"{line} [{card}]")
+    if worst != 0.0 or failures:
+        raise AssertionError(f"the int8 kernels and their plain versions "
+                             f"differ: max|d| {worst}, {failures}")
+    return {"conv": {"max_abs_err": worst, "ms": tot["ms"],
+                     "plain_ms": tot["plain_ms"], **bnd, "library_ms": None,
+                     "dp4a_ms": tot["dp4a_ms"], "weight_quantize_ms": w_ms,
+                     "stack_ms": min(stack["dynamic"]["new"]),
+                     "stack_dp4a_ms": min(stack["dynamic"]["old"])},
+            "quant": {"max_abs_err": 0.0, "ms": tot["q_ms"],
+                      "plain_ms": tot["q_plain_ms"], **q_bnd,
+                      "library_ms": None}}
 
 
 def phase_calibrate(card: str, serving) -> None:
@@ -1472,9 +1750,11 @@ def phase_calibrate(card: str, serving) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
+    # static scales: conv2's input quantize is the one quantize launch, the
+    # others are written by conv2..conv5's epilogues
     want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
                 trimodal_attention=mc.target_steps - 1,
-                vggish_conv_int8=len(V.POOLS))
+                vggish_conv_int8=len(V.POOLS), quantize_s8=1)
     log(f"calibrate: calibrate_audio_int8 on {len(req[2])} clips in "
         f"{cal_ms:.1f} ms, static scales {tuple(f'{s:.4g}' for s in scales)}"
         f"; one greedy generate() with them launched {launches} (want "
@@ -1512,7 +1792,9 @@ def main() -> None:
          "replaces": "mmqg_tpu/ops/lstm_pallas.py:100",
          "launches": launches["lstm_seq"], **k1},
         {"name": "trimodal_attention", "route": "cuda",
-         "design": "one block a (batch row, modality), SIMT",
+         "design": "blocks of 16 batch rows x 16 positions x 128 memory "
+                   "columns, mma.sync bf16 scores, flash-decoding partials "
+                   "merged by the last block of each tile (atomic counter)",
          "source": "mmqg_tpu_torch/csrc/trimodal_attention.cu",
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
          "launches": launches["trimodal_attention"], **k2},
@@ -1532,10 +1814,18 @@ def main() -> None:
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/ops/vggish_pallas.py:137", **k3},
         {"name": "vggish_conv_int8", "route": "cuda",
-         "design": "SIMT __dp4a implicit GEMM",
+         "design": "s8 wgmma (m64n128k32) implicit GEMM, K3's ring and "
+                   "tiles; epilogue folds each example's max or writes the "
+                   "next layer's int8 input",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/models/audio_encoder.py:157",
-         "launches": launches["vggish_conv_int8"], **int8}]
+         "launches": launches["vggish_conv_int8"], **int8["conv"]},
+        {"name": "quantize_s8", "route": "cuda",
+         "design": "the int8 tower's activation quantize: one pass, 16 "
+                   "values a thread (port-only: XLA ops in JAX)",
+         "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
+         "replaces": "mmqg_tpu/models/audio_encoder.py:147",
+         "launches": launches["quantize_s8"], **int8["quant"]}]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -1,6 +1,6 @@
 // VGGish conv2..conv6: a 3x3 SAME, stride-1 conv over NHWC activations with
 // HWIO weights, bias and ReLU fused, and an optional 2x2 max pool fused into
-// the epilogue. Three kernels:
+// the epilogue. Four kernels, and the int8 tower's activation quantize:
 //
 // vggish_conv_tc_kernel (K3, bf16). Replaces: mmqg_tpu/ops/vggish_pallas.py::
 // vggish_features_pallas (its ``_kernel_a``, :137, and ``_kernel_b``, :150).
@@ -24,15 +24,24 @@
 // one 2 x 2 window of positions for 4 channels, so the pool is a max over
 // its own registers.
 //
-// vggish_conv_int8_kernel. Replaces: the int8 conv of mmqg_tpu/models/
-// audio_encoder.py::embed_examples_int8 (an XLA conv there, int8 x int8 ->
-// int32). The f32 kernel's design with int8 activations and weights and
-// int32 sums (__dp4a); the epilogue is relu(float(acc) * (sx[n] * sw[c]) +
-// b[c]) with three roundings, as JAX computes it (__fmul_rn/__fadd_rn: no
-// FMA contraction), rounded to T, then pooled. sx is one scale per example,
-// sw one per output channel. Weights arrive packed (3, 3, Cin/4, Cout)
-// int32: each word holds four consecutive input channels of one output
-// channel, the operand layout of __dp4a.
+// vggish_conv_s8_kernel (the int8 conv). Replaces: the int8 conv of
+// mmqg_tpu/models/audio_encoder.py::embed_examples_int8 (an XLA conv there,
+// int8 x int8 -> int32, :157) and, fused into its epilogue, the next
+// layer's activation quantize (:147-156). Route: the bf16 kernel's implicit
+// GEMM on wgmma.m64n128k32.s32.s8.s8 (the design note is above it); the
+// epilogue is relu(float(acc) * (sx[n] * sw[c]) + b[c]) with three
+// roundings, as JAX computes it (__fmul_rn/__fadd_rn: no FMA contraction),
+// rounded to T, then pooled; sx is one scale per example (looked up per
+// row), sw one per output channel. It writes T, T and each example's max
+// (dynamic scales: quantize_kernel then makes the next layer's int8 input
+// in one pass), or the next layer's int8 input itself (static scales).
+// Weights arrive packed K-major (Cout, 3, 3, Cin) int8.
+//
+// vggish_conv_int8_kernel (the int8 conv as first written; reached
+// only through an explicit force_route="dp4a", as a yardstick). The f32
+// kernel's SIMT design with int8 operands and __dp4a int32 sums, the same
+// epilogue; weights packed (3, 3, Cin/4, Cout) int32, four consecutive
+// input channels of one output channel a word.
 //
 // Pooling comes after the rounding to T, as in JAX; rounding is monotone, so
 // pooling first would give the same values.
@@ -46,7 +55,12 @@
 // wgmma kernel takes 4.2 ms (~450 TFLOP/s, 2.2x its bound; cuDNN's bf16
 // conv2..conv6 6.1 ms). An mma.sync version of the same tiling took 6.5
 // ms; deeper rings that leave one block per SM were slower. The f32 SIMT
-// kernel 95.4 ms, vggish_conv_int8 24.5 ms.
+// kernel 95.4 ms. The int8 conv: the __dp4a kernel 24.5 ms for the five
+// layers (~76 TOP/s against the int8 tensor cores' 1979), the s8 wgmma
+// kernel 2.84 ms (3.0x its bound; 740 TOP/s at conv4, where the library's
+// int8 GEMM on the same product, im2col'd, reaches 723). The quantize is
+// bound by bytes: it reads T once and writes int8 once (0.34 ms for an
+// encode's five, measured 0.57).
 //
 // The Pallas kernels kept a tile of examples' activations in VMEM through
 // whole runs of the stack; Hopper's 227 KB of shared memory holds neither a
@@ -436,6 +450,307 @@ vggish_conv_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ------------------------------------------ the int8 conv: s8 tensor cores
+//
+// vggish_conv_tc_kernel's GEMM with int8 operands and s32 sums, on
+// wgmma.m64n128k32.s32.s8.s8: the same block (128 positions x 128 output
+// channels, two warpgroups), the same window-major rows, the same 3-stage
+// cp.async ring of 128-byte-swizzled K-major tiles (a tile of 128 rows x 128
+// bytes is the bf16 kernel's tile byte for byte, so the ring and the
+// descriptors are shared). A K slice is 128 bytes: 128 input channels of one
+// tap, four k32 steps. K = 9 Cin is walked 16 bytes a copy, each copy's tap
+// and channel computed from its K offset, so a slice may span two taps: at
+// conv2 (Cin = 64) a slice holds taps t and t + 1, K = 576 is 4.5 slices and
+// the copies past K are zero-filled in A and B alike (no padded weights).
+// Epilogue, per row (an M tile can straddle two examples, so each row looks
+// up its own example's sx): relu(float(acc) * (sx[n] * sw[c]) + b[c]) with
+// three roundings, rounded to T, pooled by lane shuffles. Then one of:
+//   T out                    (conv6, and the dynamic-scale layers);
+//   T out + amax[n] folded   (dynamic: the next layer's per-example max, a
+//                             warp max then an atomicMax on the int bits,
+//                             which order like the floats they hold, >= 0);
+//   int8 out (QUANT)         (static: the next layer's input,
+//                             round_half_even(clip(y_T / sx_next[n], 0, 127))
+//                             by true division, after the rounding to T and
+//                             the pool (the quantize is monotone, so the
+//                             order gives the same values): the pooled tile
+//                             is staged in T as for T out, and the copy-out
+//                             divides each value it stores, 16 a thread,
+//                             so a 2x2 pool divides a quarter of the values
+//                             and no lane idles through a division).
+constexpr int kS8BK = 128;            // K slice: 128 int8 = one swizzle row
+constexpr int kS8Tile = 128 * kS8BK;  // bytes of an A or B slice
+static_assert(kS8Tile == 2 * kConvTile, "the int8 ring is the bf16 ring");
+static_assert(kS8BK == tc::kSwzRowBytes, "a slice row is one swizzle row");
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 16 values of T from 16-byte-aligned memory (global or shared) as floats
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&v)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; j += 16 / (int)sizeof(T)) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p + j);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) v[j + i] = to_f32(e[i]);
+  }
+}
+
+// round_half_even(v / s) by true division, clipped to [0, 127] when CLIP
+// (static scales), as int8. A zero (half the values after ReLU) skips the
+// division.
+template <bool CLIP>
+__device__ __forceinline__ signed char quantize1(float v, float s) {
+  float t = 0.0f;
+  if (v != 0.0f) t = __fdiv_rn(v, s);
+  if (CLIP) t = fminf(fmaxf(t, 0.0f), 127.0f);
+  return static_cast<signed char>(static_cast<int>(rintf(t)));
+}
+
+// 16 values quantized by quantize1 and stored as one 16-byte word
+template <bool CLIP>
+__device__ __forceinline__ void store_q16(int8_t* dst, const float (&v)[16],
+                                          float s) {
+  __align__(16) signed char q[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) q[j] = quantize1<CLIP>(v[j], s);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(q);
+}
+
+// relu(float(acc) * (sx * sw) + b) with JAX's three f32 roundings, in T
+template <typename T>
+__device__ __forceinline__ float epilogue_s8(int acc, float sxv, float swv,
+                                             float b) {
+  const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sxv, swv)),
+                            b);
+  return round_to<T>(fmaxf(y, 0.0f));
+}
+
+// xq (N, H, W, Cin) int8; wk (Cout, 3, 3, Cin) int8; sx (N), sw (Cout),
+// bias (Cout) f32; y (N, H', W', Cout) in T, or int8 when QUANT; amax (N)
+// f32 or null; sx_next (N) f32 when QUANT. Cin % 16 == 0, Cout % 128 == 0.
+// Dynamic shared memory: kConvSmem.
+template <typename T, bool QUANT>
+__global__ void __launch_bounds__(256)
+vggish_conv_s8_kernel(const int8_t* __restrict__ xq,
+                      const int8_t* __restrict__ wk,
+                      const float* __restrict__ sx,
+                      const float* __restrict__ sw,
+                      const float* __restrict__ bias, void* __restrict__ y,
+                      float* __restrict__ amax,
+                      const float* __restrict__ sx_next, int N, int H, int W,
+                      int Cin, int Cout, int pool) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int M = N * H * W, K = 9 * Cin;
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+  const int tid = threadIdx.x;
+  // the thread's four A and B rows r0 + 32 i and its 16-byte chunk kc of
+  // the slice, as in vggish_conv_tc_kernel
+  const int r0 = (tid >> 6) * 8 + (tid & 7), kc = (tid >> 3) & 7;
+  int ay[4], ax[4];
+  bool aval[4];
+  const int8_t* abase[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + r0 + 32 * i;
+    int n, yy, xx;
+    aval[i] = m < M;
+    position_of(aval[i] ? m : 0, H, W, pool, n, yy, xx);
+    ay[i] = yy;
+    ax[i] = xx;
+    abase[i] = xq + (((size_t)n * H + yy) * W + xx) * Cin;
+  }
+  const int8_t* bbase = wk + (size_t)(n0 + r0) * K;
+  const int KT = (K + kS8BK - 1) / kS8BK;
+  auto load = [&](int kt, int stage) {
+    unsigned char* As = smem + stage * 2 * kS8Tile;
+    unsigned char* Bs = As + kS8Tile;
+    const int k = kt * kS8BK + kc * 16;  // the thread's 16 bytes of K
+    const bool kin = k < K;
+    const int tap = kin ? k / Cin : 0, c = k - tap * Cin;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 32 * i;
+      const int yy = ay[i] + dy, xx = ax[i] + dx;
+      const bool ok =
+          kin && aval[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const int8_t* src =
+          ok ? abase[i] + ((ptrdiff_t)dy * W + dx) * Cin + c : xq;
+      cp_async16(As + 2 * swz_off(r, kc), src, ok);
+      cp_async16(Bs + 2 * swz_off(r, kc),
+                 kin ? bbase + (size_t)32 * i * K + k : wk, kin);
+    }
+  };
+
+  int d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0;
+  const int wg = tid >> 7;
+#pragma unroll
+  for (int s = 0; s < kConvStages - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kConvStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // slice kt landed; slice kt-1's stage is free
+    const int nk = kt + kConvStages - 1;
+    if (nk < KT) load(nk, nk % kConvStages);
+    cp_async_commit();
+    const unsigned char* As = smem + (kt % kConvStages) * 2 * kS8Tile;
+    const unsigned char* Bs = As + kS8Tile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kS8BK / 32; ++s)
+      wgmma_m64n128k32_s8(d, wgmma_desc(As + 64 * kS8BK * wg + 32 * s),
+                          wgmma_desc(Bs + 32 * s));
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: each of the thread's two rows (row0, row0 + 8) with its own
+  // example's scales; rows past M are computed but neither stored nor
+  // folded into the max
+  constexpr int kLdO = 128 + 16 / (int)sizeof(T);  // 16-byte aligned rows
+  T* os = reinterpret_cast<T*>(smem);
+  const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 64 * wg + 16 * ((tid >> 5) & 3) + g;
+  int nr[2];
+  float sxr[2], vmax[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + row0 + 8 * h;
+    int n, yy, xx;
+    position_of(m < M ? m : 0, H, W, pool, n, yy, xx);
+    nr[h] = m < M ? n : -1;
+    sxr[h] = sx[n];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int col = nt * 8 + 2 * q;
+    const float w0 = sw[n0 + col], w1 = sw[n0 + col + 1];
+    const float b0 = bias[n0 + col], b1 = bias[n0 + col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      float v0 = epilogue_s8<T>(d[4 * nt + 2 * h], sxr[h], w0, b0);
+      float v1 = epilogue_s8<T>(d[4 * nt + 2 * h + 1], sxr[h], w1, b1);
+      if (pool) {  // rows 4j..4j+3 are lanes g ^ {0, 1, 2, 3}
+        v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 4));
+        v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 4));
+        v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 8));
+        v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 8));
+      }
+      if (nr[h] >= 0) vmax[h] = fmaxf(vmax[h], fmaxf(v0, v1));
+      if (!pool || (g & 3) == 0)
+        store2(os + (pool ? row >> 2 : row) * kLdO + col, v0, v1);
+    }
+  }
+  if (!QUANT && amax != nullptr) {
+    // one atomic a warp where its 16 rows lie in one example (all of them
+    // at VGGish's shapes), else one a row
+    const int nf = __shfl_sync(0xffffffffu, nr[0], 0);
+    const bool one = __all_sync(0xffffffffu, (nr[0] < 0 || nr[0] == nf) &&
+                                                 (nr[1] < 0 || nr[1] == nf));
+    if (one) {
+      const float v = warp_max(fmaxf(vmax[0], vmax[1]));
+      if (lane == 0 && nf >= 0)
+        atomicMax(reinterpret_cast<int*>(amax) + nf, __float_as_int(v));
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (nr[h] >= 0)
+          atomicMax(reinterpret_cast<int*>(amax) + nr[h],
+                    __float_as_int(vmax[h]));
+    }
+  }
+  __syncthreads();
+  const int rows = pool ? 32 : 128;
+  const int out0 = pool ? m0 / 4 : m0, out_rows = pool ? M / 4 : M;
+  if (QUANT) {  // 16 channels a thread, each output row's own example
+    const int per_n = pool ? H * W / 4 : H * W;  // output rows an example
+    int8_t* yo = static_cast<int8_t*>(y);
+    for (int i = tid; i < rows * 8; i += 256) {
+      const int r = i / 8, cc = (i % 8) * 16;
+      if (out0 + r >= out_rows) continue;
+      float v[16];
+      load16(os + r * kLdO + cc, v);
+      store_q16<true>(yo + (size_t)(out0 + r) * Cout + n0 + cc, v,
+                      sx_next[(out0 + r) / per_n]);
+    }
+    return;
+  }
+  constexpr int kVec = 16 / (int)sizeof(T);  // T values a 16-byte store
+  T* yo = static_cast<T*>(y);
+  for (int i = tid; i < rows * (128 / kVec); i += 256) {
+    const int r = i / (128 / kVec), cc = (i % (128 / kVec)) * kVec;
+    if (out0 + r < out_rows)
+      *reinterpret_cast<uint4*>(yo + (size_t)(out0 + r) * Cout + n0 + cc) =
+          *reinterpret_cast<const uint4*>(os + r * kLdO + cc);
+  }
+}
+
+// ---------------------------------------------- the activation quantize
+//
+// x (N, P) in T, P = H * W * C values an example, P % 16 == 0 -> xq (N, P)
+// int8 and sx (N) f32: dynamic, sx = max(m[n], 1e-6) / 127 and xq =
+// round_half_even(x / sx) (embed_examples_int8's formula, true divisions);
+// static, sx given and xq = round_half_even(clip(x / sx, 0, 127)). A thread
+// takes 16 values (one 16-byte int8 store). What bounds it: bytes (reads T
+// once, writes int8 once).
+
+// m[n] = max over example n of x (m zeroed before; x >= 0): grid (any, N)
+template <typename T>
+__global__ void __launch_bounds__(256)
+amax_kernel(const T* __restrict__ x, float* __restrict__ m, int P) {
+  __shared__ float red[32];
+  const T* xn = x + (size_t)blockIdx.y * P;
+  float mx = 0.0f;
+  for (int i = (blockIdx.x * 256 + threadIdx.x) * 16; i < P;
+       i += gridDim.x * 256 * 16) {
+    float v[16];
+    load16(xn + i, v);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, v[j]);
+  }
+  mx = block_max(mx, red);
+  if (threadIdx.x == 0)
+    atomicMax(reinterpret_cast<int*>(m) + blockIdx.y, __float_as_int(mx));
+}
+
+template <typename T, bool STATIC>
+__global__ void __launch_bounds__(256)
+quantize_kernel(const T* __restrict__ x, const float* __restrict__ m,
+                float* __restrict__ sx, int8_t* __restrict__ xq, int N,
+                int P) {
+  const size_t i = ((size_t)blockIdx.x * 256 + threadIdx.x) * 16;
+  if (i >= (size_t)N * P) return;
+  const int n = static_cast<int>(i / P);
+  float s;
+  if (STATIC) {
+    s = sx[n];
+  } else {
+    s = __fdiv_rn(fmaxf(m[n], 1e-6f), 127.0f);
+    if (i == (size_t)n * P) sx[n] = s;
+  }
+  float v[16];
+  load16(x + i, v);
+  store_q16<STATIC>(xq + i, v, s);
+}
+
 // The launch both entry points share: shape checks (the kernels assume
 // them), the grid, and the launch's own error.
 bool bad_shape(int N, int H, int W, int Cin, int Cout, int pool, int chunk) {
@@ -516,5 +831,95 @@ extern "C" int mmqg_vggish_conv_int8(const void* xq, const void* wq,
     vggish_conv_int8_kernel<float><<<grid, kThreads, 0, s>>>(
         xp, wp, sxp, swp, bp, static_cast<float*>(y), H, W, Cin, Cout, tx,
         tpi, pool);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 conv on s8 tensor cores (vggish_conv_s8_kernel). xq (N,H,W,Cin)
+// int8; wk packed K-major (Cout,3,3,Cin) int8; sx (N), sw (Cout), bias
+// (Cout) f32. With ``sx_next`` (N) f32: y (N,H',W',Cout) int8, the next
+// layer's input under static scales; else y in the compute type (bf16 when
+// ``bf16`` is set, else f32) and, when ``amax`` (N) f32 is given, each
+// example's max of y, zeroed here first. Cin % 16 == 0, Cout % 128 == 0, H
+// and W even when pooling. Returns the cudaError_t of the launch.
+extern "C" int mmqg_vggish_conv_s8(const void* xq, const void* wk,
+                                   const void* sx, const void* sw,
+                                   const void* bias, void* y, void* amax,
+                                   const void* sx_next, int N, int H, int W,
+                                   int Cin, int Cout, int pool, int bf16,
+                                   void* stream) {
+  using namespace mmqg;
+  if (bad_shape(N, H, W, Cin, Cout, pool, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* am = static_cast<float*>(amax);
+  if (am != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(am, 0, sizeof(float) * N, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = sx_next != nullptr
+                    ? (bf16 ? vggish_conv_s8_kernel<__nv_bfloat16, true>
+                            : vggish_conv_s8_kernel<float, true>)
+                    : (bf16 ? vggish_conv_s8_kernel<__nv_bfloat16, false>
+                            : vggish_conv_s8_kernel<float, false>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long M = (long long)N * H * W;
+  const dim3 grid(Cout / 128, (unsigned)((M + 127) / 128));
+  kernel<<<grid, 256, kConvSmem, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), y, am,
+      static_cast<const float*>(sx_next), N, H, W, Cin, Cout, pool);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Quantize x (N, P) in the compute type (P % 16 == 0) to xq (N, P) int8 and
+// sx (N) f32. mode 0: dynamic, m (N) holds each example's max (the previous
+// conv folded it); mode 1: dynamic, m is scratch and the max is taken here
+// first; mode 2: static, sx holds the scales and m is unused. Returns the
+// cudaError_t of the launches.
+extern "C" int mmqg_quantize_s8(const void* x, void* m, void* sx, void* xq,
+                                int N, int P, int mode, int bf16,
+                                void* stream) {
+  using namespace mmqg;
+  if (N < 1 || P < 16 || P % 16 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mp = static_cast<float*>(m);
+  float* sxp = static_cast<float*>(sx);
+  int8_t* q = static_cast<int8_t*>(xq);
+  if (mode == 1) {
+    const cudaError_t err = cudaMemsetAsync(mp, 0, sizeof(float) * N, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per = (P / 16 + 255) / 256;  // blocks an example, at most 8
+    const dim3 grid(per < 8 ? per : 8, N);
+    if (bf16)
+      amax_kernel<<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                       mp, P);
+    else
+      amax_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x), mp, P);
+    const cudaError_t e2 = cudaGetLastError();
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+  }
+  const long long groups = (long long)N * P / 16;
+  const unsigned blocks = (unsigned)((groups + 255) / 256);
+  if (bf16) {
+    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+    if (mode == 2)
+      quantize_kernel<__nv_bfloat16, true><<<blocks, 256, 0, s>>>(
+          xp, mp, sxp, q, N, P);
+    else
+      quantize_kernel<__nv_bfloat16, false><<<blocks, 256, 0, s>>>(
+          xp, mp, sxp, q, N, P);
+  } else {
+    const float* xp = static_cast<const float*>(x);
+    if (mode == 2)
+      quantize_kernel<float, true><<<blocks, 256, 0, s>>>(xp, mp, sxp, q, N,
+                                                          P);
+    else
+      quantize_kernel<float, false><<<blocks, 256, 0, s>>>(xp, mp, sxp, q, N,
+                                                           P);
+  }
   return static_cast<int>(cudaGetLastError());
 }

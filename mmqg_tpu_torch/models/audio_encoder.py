@@ -75,16 +75,15 @@ class AudioEncoder(nn.Module):
         ``dtype`` through the library conv; conv2..conv6 as int8 x int8 ->
         int32 convs with per-output-channel weight scales and per-example
         activation scales (``act_scales``, from :meth:`calibrate_int8_scales`,
-        switches to static per-layer scales); the fc head in ``dtype``. The
-        quantize steps are plain tensor operations, as the JAX package leaves
-        them to XLA. Serving only."""
-        x = V.conv1_pool(self.convs, mel, dtype)
-        for i, (c, pool) in enumerate(zip(self.convs[1:], V.POOLS)):
-            wq, sw = V.quantize_weights(c.w)
-            xq, sx = V.quantize_activations(
-                x, None if act_scales is None else act_scales[i])
-            x = V.conv3x3_relu_int8(xq, wq, sx, sw, c.b, pool=pool,
-                                    dtype=dtype)
+        switches to static per-layer scales); the fc head in ``dtype``. On
+        the card each activation quantize is a hand-written kernel
+        (``V.int8_convs``): conv2's input through ``quantize_s8``, every
+        later one fused into the previous conv
+        (``conv3x3_relu_int8_quant``), as the JAX package's docstring
+        describes XLA fusing it. The weight quantize runs per call, as in
+        JAX. Serving only."""
+        x = V.int8_convs(self.convs, V.conv1_pool(self.convs, mel, dtype),
+                         dtype=dtype, act_scales=act_scales)
         return self._head(x.reshape(x.shape[0], -1), dtype)
 
     def calibrate_int8_scales(self, mel: Tensor, *,

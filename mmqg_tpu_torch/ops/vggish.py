@@ -1,12 +1,14 @@
 """K3: VGGish conv2..conv6, and the int8 conv of the serving audio tower.
 
 Counterpart of ``mmqg_tpu/ops/vggish_pallas.py`` (:func:`vggish_features`
-replaces ``vggish_features_pallas``) and of the int8 conv in
-``mmqg_tpu/models/audio_encoder.py::embed_examples_int8``
-(:func:`conv3x3_relu_int8`). Both run hand-written kernels in
+replaces ``vggish_features_pallas``) and of the int8 conv and activation
+quantize in ``mmqg_tpu/models/audio_encoder.py::embed_examples_int8``
+(:func:`conv3x3_relu_int8`, :func:`conv3x3_relu_int8_quant`,
+:func:`quantize_s8`). All run hand-written kernels in
 ``csrc/vggish_conv.cu`` (see its header): a 3x3 SAME conv with bias, ReLU
-and an optional 2x2 max pool fused, over NHWC activations and HWIO weights;
-in bf16 a tensor-core implicit GEMM, in f32 and int8 SIMT kernels.
+and an optional 2x2 max pool fused, over NHWC activations and HWIO
+weights; in bf16 and int8 a tensor-core implicit GEMM (wgmma), in f32 a
+SIMT kernel; and the int8 tower's activation quantize.
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. Any other device
@@ -19,7 +21,9 @@ int32 sums of int8 x int8, then ``relu(float(acc) * (sx[n] * sw[c]) +
 b[c])`` with one f32 rounding per operation, rounded to the dtype, then
 pooled -- ``embed_examples_int8``'s epilogue. The plain int8 version sums in
 float64, which holds every such sum exactly (|sum| <= 127 * 127 * 9 * Cin
-< 2^53), so kernel and plain agree bit for bit.
+< 2^53), so kernel and plain agree bit for bit. The quantize
+(:func:`quantize_activations`, true divisions, round half to even) is
+monotone, so the fused kernel may quantize before or after the pool.
 """
 
 from __future__ import annotations
@@ -213,30 +217,70 @@ def conv3x3_relu_int8_plain(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
     return _pool2(y) if pool else y
 
 
-def conv3x3_relu_int8(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
-                      b: Tensor, *, pool: bool,
-                      dtype: torch.dtype = torch.bfloat16) -> Tensor:
-    """One quantized VGGish conv layer: ``xq (N, H, W, Cin)`` and ``wq
-    (3, 3, Cin, Cout)`` int8, per-example ``sx (N,)``, per-channel ``sw
-    (Cout,)`` and bias ``b (Cout,)`` f32. Returns relu(float(xq * wq) *
-    (sx * sw) + b) in ``dtype``, 2x2-max-pooled when ``pool``. Counts one
-    launch per call on CUDA (``conv3x3_relu_int8.launches``)."""
-    if xq.device.type == "cpu":
-        return conv3x3_relu_int8_plain(xq, wq, sx, sw, b, pool=pool,
-                                       dtype=dtype)
+INT8_ROUTES = ("wgmma", "dp4a")
+
+
+def _int8_args(fn, xq, wq, sx, sw, b, dtype):
     if xq.device.type != "cuda":
-        raise ValueError(f"conv3x3_relu_int8: no kernel for device "
-                         f"{xq.device}")
+        raise ValueError(f"{fn}: no kernel for device {xq.device}")
     if dtype not in _DTYPES:
-        raise ValueError(f"conv3x3_relu_int8: compute dtype {dtype} not "
-                         "supported")
+        raise ValueError(f"{fn}: compute dtype {dtype} not supported")
     N, H, W, Cin = xq.shape
     Cout = wq.shape[-1]
     f32 = torch.float32
-    _check("conv3x3_relu_int8", xq.device, {
+    _check(fn, xq.device, {
         "xq": (xq, (N, H, W, Cin), torch.int8),
         "wq": (wq, (3, 3, Cin, Cout), torch.int8), "sx": (sx, (N,), f32),
         "sw": (sw, (Cout,), f32), "b": (b, (Cout,), f32)})
+    return N, H, W, Cin, Cout
+
+
+def _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=None, sx_next=None,
+             fn="conv3x3_relu_int8") -> Tensor:
+    """Launch the s8 tensor-core conv (``mmqg_vggish_conv_s8``): y in
+    ``dtype``, folding each example's max into ``amax`` when given, or the
+    next layer's int8 input when ``sx_next`` is given."""
+    N, H, W, Cin, Cout = _int8_args(fn, xq, wq, sx, sw, b, dtype)
+    _check_shape(fn, H, W, Cin, Cout, pool, 32)
+    wk = pack_weights_kmajor(wq, torch.int8)   # the GEMM's K-major B
+    Ho, Wo = (H // 2, W // 2) if pool else (H, W)
+    y = torch.empty((N, Ho, Wo, Cout), device=xq.device,
+                    dtype=torch.int8 if sx_next is not None else dtype)
+    with torch.cuda.device(xq.device):
+        rc = _build.library().mmqg_vggish_conv_s8(
+            xq.data_ptr(), wk.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            b.data_ptr(), y.data_ptr(),
+            None if amax is None else amax.data_ptr(),
+            None if sx_next is None else sx_next.data_ptr(), N, H, W, Cin,
+            Cout, int(pool), int(dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "mmqg_vggish_conv_s8")
+    conv3x3_relu_int8.launches += 1
+    conv3x3_relu_int8.routes["wgmma"] += 1
+    return y
+
+
+def conv3x3_relu_int8(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
+                      b: Tensor, *, pool: bool,
+                      dtype: torch.dtype = torch.bfloat16,
+                      force_route: Optional[str] = None) -> Tensor:
+    """One quantized VGGish conv layer: ``xq (N, H, W, Cin)`` and ``wq
+    (3, 3, Cin, Cout)`` int8, per-example ``sx (N,)``, per-channel ``sw
+    (Cout,)`` and bias ``b (Cout,)`` f32. Returns relu(float(xq * wq) *
+    (sx * sw) + b) in ``dtype``, 2x2-max-pooled when ``pool``. On CUDA each
+    call counts one launch (``conv3x3_relu_int8.launches``) and its route
+    (``.routes``): the s8 tensor-core kernel ("wgmma"), or with
+    ``force_route="dp4a"`` the SIMT ``__dp4a`` kernel of the first port, a
+    yardstick that is never chosen otherwise."""
+    if force_route not in (None,) + INT8_ROUTES:
+        raise ValueError(f"conv3x3_relu_int8: no route {force_route!r}")
+    if xq.device.type == "cpu":
+        return conv3x3_relu_int8_plain(xq, wq, sx, sw, b, pool=pool,
+                                       dtype=dtype)
+    if force_route != "dp4a":
+        return _conv_s8(xq, wq, sx, sw, b, pool, dtype)
+    N, H, W, Cin, Cout = _int8_args("conv3x3_relu_int8", xq, wq, sx, sw, b,
+                                    dtype)
     _check_shape("conv3x3_relu_int8", H, W, Cin, Cout, pool, 32)
     # four consecutive input channels of one output channel per int32 word
     # (little-endian: channel 4k + i in byte i), the operand of __dp4a
@@ -252,7 +296,105 @@ def conv3x3_relu_int8(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_vggish_conv_int8")
     conv3x3_relu_int8.launches += 1
+    conv3x3_relu_int8.routes["dp4a"] += 1
     return y
 
 
 conv3x3_relu_int8.launches = 0
+conv3x3_relu_int8.routes = dict.fromkeys(INT8_ROUTES, 0)  # launches by route
+
+
+def conv3x3_relu_int8_quant(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
+                            b: Tensor, *, pool: bool,
+                            dtype: torch.dtype = torch.bfloat16,
+                            next_scale: Optional[float] = None):
+    """:func:`conv3x3_relu_int8` followed by the next layer's quantize
+    (:func:`quantize_activations` of its output): returns (xq_next int8,
+    sx_next f32 (N,)). On CUDA the quantize is fused: with ``next_scale``
+    (static) the conv's epilogue writes the int8 values; without it
+    (dynamic) the epilogue writes the activations and folds each example's
+    max, and one :func:`quantize_s8` launch makes the int8 values. Counts
+    one ``conv3x3_relu_int8`` launch (and, dynamic, one ``quantize_s8``)."""
+    if xq.device.type == "cpu":
+        return quantize_activations(conv3x3_relu_int8_plain(
+            xq, wq, sx, sw, b, pool=pool, dtype=dtype), next_scale)
+    N = xq.shape[0]
+    if next_scale is not None:
+        sx_next = torch.full((N,), next_scale, dtype=torch.float32,
+                             device=xq.device)
+        return (_conv_s8(xq, wq, sx, sw, b, pool, dtype, sx_next=sx_next,
+                         fn="conv3x3_relu_int8_quant"), sx_next)
+    amax = torch.empty((N,), dtype=torch.float32, device=xq.device)
+    y = _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=amax,
+                 fn="conv3x3_relu_int8_quant")
+    return quantize_s8(y, amax=amax)
+
+
+def quantize_s8(x: Tensor, scale: Optional[float] = None, *,
+                amax: Optional[Tensor] = None):
+    """:func:`quantize_activations` as one hand-written kernel on CUDA
+    (``mmqg_quantize_s8``): reads ``x (N, H, W, C)`` (f32 or bf16) once and
+    writes int8 once. Dynamic scales take each example's max from ``amax
+    (N,)`` when a conv folded it, else compute it first; ``scale`` gives
+    static ones. Counts one launch per call (``quantize_s8.launches``)."""
+    if x.device.type == "cpu":
+        return quantize_activations(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_s8: no kernel for device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"quantize_s8: dtype {x.dtype} not supported")
+    N = x.shape[0]
+    P = x.numel() // N
+    if x.dim() != 4 or P % 16 or not x.is_contiguous():
+        raise ValueError(f"quantize_s8: the kernel takes a contiguous (N, "
+                         f"H, W, C) tensor with H * W * C % 16 == 0, not "
+                         f"{tuple(x.shape)}")
+    if scale is not None:
+        mode = 2
+        sx = torch.full((N,), scale, dtype=torch.float32, device=x.device)
+    else:
+        sx = torch.empty((N,), dtype=torch.float32, device=x.device)
+        mode = 0 if amax is not None else 1
+    if amax is None:
+        amax = torch.empty((N,), dtype=torch.float32, device=x.device)
+    elif tuple(amax.shape) != (N,) or amax.dtype != torch.float32 or (
+            amax.device != x.device):
+        raise ValueError("quantize_s8: amax must be (N,) f32 on x's device")
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library().mmqg_quantize_s8(
+            x.data_ptr(), amax.data_ptr(), sx.data_ptr(), xq.data_ptr(), N, P,
+            mode, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "mmqg_quantize_s8")
+    quantize_s8.launches += 1
+    return xq, sx
+
+
+quantize_s8.launches = 0
+
+
+def int8_convs(convs: Sequence[L.Conv2d], x: Tensor, *,
+               dtype: torch.dtype = torch.bfloat16,
+               act_scales: Optional[Sequence[float]] = None) -> Tensor:
+    """conv2..conv6 of the int8 tower over conv1's pooled output ``x (N, 48,
+    32, 64)`` in ``dtype``: conv2's input through :func:`quantize_s8`,
+    conv2..conv5 each with the next layer's quantize
+    (:func:`conv3x3_relu_int8_quant`), conv6 through
+    :func:`conv3x3_relu_int8`. Returns (N, 6, 4, 512) in ``dtype``.
+    ``act_scales`` (one float a layer) gives static scales. The weight
+    quantize runs per call, as in JAX. On CUDA: five int8 conv launches,
+    and five quantize launches (dynamic) or one (static)."""
+    scales = (None,) * len(POOLS) if act_scales is None else act_scales
+    xq, sx = quantize_s8(x, scales[0])
+    last = len(POOLS) - 1
+    for i, (c, pool) in enumerate(zip(convs[1:], POOLS)):
+        wq, sw = quantize_weights(c.w)
+        if i < last:
+            xq, sx = conv3x3_relu_int8_quant(xq, wq, sx, sw, c.b, pool=pool,
+                                             dtype=dtype,
+                                             next_scale=scales[i + 1])
+        else:
+            x = conv3x3_relu_int8(xq, wq, sx, sw, c.b, pool=pool,
+                                  dtype=dtype)
+    return x

@@ -119,18 +119,59 @@ def _attn_args(dev, dtype, B=5, Dq=40, Lt=37, La=11, Ht=64, Hv=48, Ha=16,
             t(rng.randn(B, La, Hv)), t(rng.randn(B, La, Ha)), *lens)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_trimodal_attention_kernel_matches_plain(dev, dtype):
-    args = _attn_args(dev, dtype)
-    before = trimodal_attention.launches
-    got = trimodal_attention(*args)
-    assert trimodal_attention.launches == before + 1
+def _attn_check(args, force=None, route="tiled"):
+    """K2 kernel vs plain at 1e-5 (both compute in f32 from the same
+    operands); the call must take ``route``."""
+    before = trimodal_attention.launches, dict(trimodal_attention.routes)
+    got = trimodal_attention(*args, force_route=force)
+    assert trimodal_attention.launches == before[0] + 1
+    assert {k: v - before[1][k] for k, v in
+            trimodal_attention.routes.items()} == {
+        r: int(r == route) for r in before[1]}
     ref = trimodal_attention_plain(*args)
     torch.cuda.synchronize()
     for g, r in zip(got[:3], ref[:3]):
         assert float((g - r).abs().max()) <= 1e-5
     for k in ref[3]:
         assert float((got[3][k] - ref[3][k]).abs().max()) <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trimodal_attention_kernel_matches_plain(dev, dtype):
+    _attn_check(_attn_args(dev, dtype))
+
+
+# the flagship's shapes (Dq 812, L 283 / 101 / 101, H 512 / 512 / 128);
+# lengths: random, all 1, all L, and L - 3 (not a multiple of the 16-position
+# chunk). W is scaled by 1 / sqrt(Dq), as chip_smoke.py's K2 phase does, so
+# the scores are O(1) as the model's are: at unit W their spread (~28) makes
+# each softmax near one-hot, and the f32 sums' order alone then moves a
+# context by ~1e-4.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,lens", [(1, "random"), (32, "random"),
+                                    (33, "random"), (128, "random"),
+                                    (32, "one"), (33, "full"),
+                                    (32, "ragged")])
+def test_trimodal_attention_tiled_at_the_flagship_shapes(dev, dtype, B, lens):
+    args = list(_attn_args(dev, dtype, B=B, Dq=812, Lt=283, La=101, Ht=512,
+                           Hv=512, Ha=128, seed=B))
+    args[0] = (args[0].float() / np.sqrt(812)).to(dtype)
+    for i, L in zip((6, 7, 8), (283, 101, 101)):
+        if lens != "random":
+            n = {"one": 1, "full": L, "ragged": L - 3}[lens]
+            args[i] = torch.full((B,), n, dtype=torch.int32, device=dev)
+    got = _attn_check(args)
+    again = trimodal_attention(*args)  # the arrival counters were left zero
+    torch.cuda.synchronize()
+    for g, a in zip(got[:3], again[:3]):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trimodal_attention_per_row_route_when_forced(dev, dtype):
+    _attn_check(_attn_args(dev, dtype, B=33), force="per_row",
+                route="per_row")
 
 
 def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
@@ -138,6 +179,10 @@ def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
     args[3] = args[3].float()   # f32 text memory with a bf16 query
     with pytest.raises(ValueError, match="enc_text"):
         trimodal_attention(*args)
+    args = list(_attn_args(dev, torch.bfloat16, Dq=42))
+    with pytest.raises(ValueError, match="Dq % 4"):
+        trimodal_attention(*args)
+    trimodal_attention(*args, force_route="per_row")  # the first design
 
 
 # K4, max |kernel - plain| of the forward, and of each gradient over its
@@ -297,6 +342,114 @@ def test_vggish_conv_int8_kernel_matches_plain_exactly(dev, pool, dtype,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == ref.shape
     assert float(ref.abs().max()) > 0
+    assert torch.equal(got, ref)
+
+
+# the s8 tensor-core route: every Cin of VGGish (64: a K slice spans two
+# taps), pool on and off, dynamic and static scales, N=3 at 12 x 10 (120
+# positions an example: M tiles straddle examples); bit for bit
+@pytest.mark.parametrize("Cin,Cout", [(64, 128), (128, 256), (256, 256),
+                                      (512, 128)])
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("static", [False, True])
+def test_vggish_conv_int8_wgmma_matches_plain_exactly(dev, Cin, Cout, pool,
+                                                      static):
+    args = _int8_layer_args(dev, Cin=Cin, Cout=Cout, static=static)
+    before = dict(V.conv3x3_relu_int8.routes)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
+        ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
+        torch.cuda.synchronize()
+        assert float(ref.abs().max()) > 0
+        assert torch.equal(got, ref)
+    assert V.conv3x3_relu_int8.routes == dict(before, wgmma=before["wgmma"] + 2)
+
+
+@pytest.mark.parametrize("N,H,W", [(1, 8, 8), (37, 12, 8), (3, 12, 10)])
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("static", [False, True])
+def test_vggish_conv_int8_quant_matches_plain_exactly(dev, N, H, W, pool,
+                                                      static):
+    """The conv with the next layer's quantize fused (the epilogue's int8
+    under static scales; the folded max + quantize_s8 under dynamic ones)
+    against the plain conv and quantize_activations: identical int8 values
+    and identical scales."""
+    args = _int8_layer_args(dev, N=N, H=H, W=W, Cin=128, Cout=128,
+                            static=static)
+    scale = 0.05 if static else None
+    for dtype in (torch.bfloat16, torch.float32):
+        before = V.conv3x3_relu_int8.launches, V.quantize_s8.launches
+        xq, sx = V.conv3x3_relu_int8_quant(*args, pool=pool, dtype=dtype,
+                                           next_scale=scale)
+        assert (V.conv3x3_relu_int8.launches, V.quantize_s8.launches) == (
+            before[0] + 1, before[1] + int(not static))
+        rq, rs = V.quantize_activations(V.conv3x3_relu_int8_plain(
+            *args, pool=pool, dtype=dtype), scale)
+        torch.cuda.synchronize()
+        assert xq.dtype == torch.int8 and int(rq.max()) > 0
+        assert torch.equal(xq, rq) and torch.equal(sx, rs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("static", [False, True])
+def test_quantize_s8_matches_quantize_activations(dev, dtype, static):
+    """conv2's input quantize (max taken in the kernel) on values whose
+    quotients fall on .5 (x = k / 4 with sx = 0.5: max 63.5 / 127), and on
+    random ones."""
+    k = torch.arange(256, device=dev) % 255   # each example: 0 .. 63.5
+    halves = (k.float() / 4).to(dtype).reshape(1, 16, 16, 1).expand(
+        4, 16, 16, 1).contiguous()
+    rand = torch.relu(torch.randn(5, 6, 4, 64, device=dev)).to(dtype)
+    for x in (halves, rand):
+        scale = 0.5 if static else None
+        got = V.quantize_s8(x, scale)
+        ref = V.quantize_activations(x, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert float(V.quantize_activations(halves)[1][0]) == 0.5
+
+
+def test_embed_examples_int8_on_the_card_matches_its_plain_layers(dev):
+    """The tower's int8 stack on the card (quantize_s8 + four fused
+    conv3x3_relu_int8_quant + conv3x3_relu_int8) equals the CPU's plain
+    layers fed the same conv1 output, dynamic and static."""
+    convs = _vggish_convs(dev)
+    mel = torch.from_numpy((np.random.RandomState(9).randn(3, 96, 64) * 2
+                            ).astype(np.float32)).to(dev)
+    x1 = V.conv1_pool(convs, mel, torch.float32)
+    for scales in ((None,) * 5, (0.05, 0.05, 0.1, 0.1, 0.2)):
+        xq, sx = V.quantize_s8(x1, scales[0])
+        cq, cs = V.quantize_activations(x1.cpu(), scales[0])
+        for i, (c, pool) in enumerate(zip(convs[1:], V.POOLS)):
+            wq, sw = V.quantize_weights(c.w)
+            cargs = (wq.cpu(), sw.cpu(), c.b.cpu())
+            if i < 4:
+                xq, sx = V.conv3x3_relu_int8_quant(
+                    xq, wq, sx, sw, c.b, pool=pool, dtype=torch.float32,
+                    next_scale=scales[i + 1])
+                cq, cs = V.conv3x3_relu_int8_quant(
+                    cq, cargs[0], cs, cargs[1], cargs[2], pool=pool,
+                    dtype=torch.float32, next_scale=scales[i + 1])
+                assert torch.equal(xq.cpu(), cq) and torch.equal(sx.cpu(), cs)
+            else:
+                y = V.conv3x3_relu_int8(xq, wq, sx, sw, c.b, pool=pool,
+                                        dtype=torch.float32)
+                ref = V.conv3x3_relu_int8(cq, cargs[0], cs, cargs[1],
+                                          cargs[2], pool=pool,
+                                          dtype=torch.float32)
+                assert float(ref.abs().max()) > 0
+                assert torch.equal(y.cpu(), ref)
+
+
+@pytest.mark.parametrize("pool", [True, False])
+def test_vggish_conv_int8_dp4a_route_when_forced(dev, pool):
+    args = _int8_layer_args(dev)
+    before = dict(V.conv3x3_relu_int8.routes)
+    got = V.conv3x3_relu_int8(*args, pool=pool, dtype=torch.bfloat16,
+                              force_route="dp4a")
+    assert V.conv3x3_relu_int8.routes == dict(before, dp4a=before["dp4a"] + 1)
+    ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 
