@@ -22,34 +22,45 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             encode
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
-7. K4       lstm_layer_train forward + backward kernels vs their plain
+7. strategies  the same pipeline (bf16, int8 tower) serves 32 requests by
+            beam search (K=4): K2 must launch 21x by the tiled route on 128
+            rows, K1 4x persistent, the int8 conv 5x; beam and greedy
+            generate() timed in turns and one beam decode profiled (K2's
+            device time at 128 rows); sampling, top-k and top-p: each row
+            served alone with its row seed equals the row in the batch (f32
+            must; bf16 is printed); a sampled generate() against greedy in
+            turns; every strategy card vs CPU in f32 (identical tokens, the
+            beam tokens' log-probability within a stated tolerance);
+            evaluate() with beam and sampling over two synthetic batches; the
+            host's media tools (cv2, libav, ffmpeg), printed, not checked
+8. K4       lstm_layer_train forward + backward kernels vs their plain
             versions at the encoders' shapes and one edge case (B=5, T=1),
             f32 and bf16, with times; the forward's and the backward's
             routes must be the persistent sweeps at the encoders' shapes; the
             forward's two routes timed in turns at text layer 0 bf16
-8. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
+9. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
             on a synthetic in-memory corpus: K4 must launch 4x forward and
             4x backward per step, all persistent, K1/K2 none; one step timed
             and profiled
             (step ms, samples/s, device idle share); then validate(), which
             must launch K1 4x per batch and K2 22x per batch
-9. train card/cpu  one f32 train step of 4 samples on the card and on the
+10. train card/cpu  one f32 train step of 4 samples on the card and on the
             CPU (He-scaled VGGish convs and tone audio, so the audio
             attention has gradients to compare): loss, every gradient leaf
             and the updated parameters within stated tolerances
-10. K3      vggish_conv kernel vs its plain version on the serving batch's
+11. K3      vggish_conv kernel vs its plain version on the serving batch's
             1184 examples of 96 x 64 log-mel, f32 and bf16, with the cuDNN
             conv2..conv6 stack timed beside it, and in bf16 at two ragged
             sizes (1 and 37 examples); then the K3 path,
             AudioEncoder.forward(use_kernel=True), must launch it 5x
-11. int8    vggish_conv_int8 (the s8 tensor-core route and the forced
+12. int8    vggish_conv_int8 (the s8 tensor-core route and the forced
             __dp4a one, timed in turns) vs its plain version on the same
             batch's quantized inputs, each of the five layers, dynamic and
             static scales: max |d| must be 0; the fused next-layer quantize
             and quantize_s8 vs quantize_activations: identical int8 and
             scales; the whole int8 stack (quantizes included) new vs old in
             turns, and at 1 and 37 examples; torch._int_mm as a yardstick
-12. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
+13. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
             generate() with the static scales (quantize_s8 once: the later
             quantizes are the convs' epilogues)
 
@@ -79,14 +90,18 @@ import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import List
+from unittest import mock
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from mmqg_tpu_torch import decode as DEC
+from mmqg_tpu_torch import evaluate as EV
+from mmqg_tpu_torch import metrics as M
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.data.vocab import END_ID
+from mmqg_tpu_torch.models import decoder as decoder_module
 from mmqg_tpu_torch.models import frontends
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
@@ -101,8 +116,9 @@ from mmqg_tpu_torch.ops.lstm_train import (bwd_route, lstm_layer_train,
                                            lstm_train_fwd_plain)
 from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_leaves,
                                   tree_map)
-from mmqg_tpu_torch.pipeline import QGPipeline
+from mmqg_tpu_torch.pipeline import QGPipeline, row_seed_array
 from mmqg_tpu_torch.train import Trainer, batch_arrays, to_device
+from mmqg_tpu_torch.utils import prng
 
 SEED = 0
 # Comparisons on the card run in true f32: cuBLAS matmuls and cuDNN convs
@@ -743,6 +759,281 @@ LOGIT_TOL = 1e-5
 INT8_LOGIT_TOL = 1e-3
 
 
+# ------------------------------------------------------------ strategies
+
+BEAM_SIZE = 4
+# the sampled strategies of the phase: (strategy, k, p)
+DRAWS = (("sampling", 1, 0.9), ("topk", 5, 0.9), ("topp", 1, 0.9))
+STRATEGY_SEED = 7
+# rows served alone for the per-row check (of the 32)
+ALONE_ROWS = (0, 5, 9, 14, 18, 23, 27, 31)
+# f32 sequence log-probability of the beam tokens, card vs CPU: 21 steps of
+# log-softmax over logits that agree within LOGIT_TOL
+LOGPROB_TOL = 1e-4
+
+
+def row_ids(n: int) -> List[int]:
+    """Stable request identities for the per-row streams, some of them past
+    2**31 and negative, so that their wrap into int32 is exercised."""
+    return [2**31 + 3 * i if i % 3 == 0 else -7 * i if i % 3 == 1 else 1000 + i
+            for i in range(n)]
+
+
+def request_caps(pipe, req) -> dict:
+    """The AV caps of a request batch, to pin a sub-request to them."""
+    host = pipe._pack(*req)
+    return dict(audio_cap=DEC.audio_bucket(pipe.mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(pipe.mc, host["frames_len"]))
+
+
+def per_row_check(pipe, req, strategy: str, k: int, p: float, rows):
+    """(questions of the batch, rows of ``rows`` whose question served alone
+    differs): each row is served alone with its row seed and the batch's
+    AV caps, so its encoders run the same steps as in the batch."""
+    ids = row_ids(len(req[0]))
+    kw = dict(strategy=strategy, topk=k, top_p=p, seed=STRATEGY_SEED,
+              **request_caps(pipe, req))
+    together = pipe.generate_async(*req, row_seeds=ids, **kw)()
+    differ = [i for i in rows if pipe.generate_async(
+        *(r[i:i + 1] for r in req), row_seeds=ids[i:i + 1], **kw)()
+        != together[i:i + 1]]
+    return together, differ
+
+
+def strategy_tokens(pipe, req) -> dict:
+    """Every strategy's tokens of one request batch in ``pipe.dtype`` from
+    one encode, and the sequence log-probability of the beam tokens."""
+    mc = pipe.mc
+    host = pipe._pack(*req)
+    mem, st = DEC.encode(pipe.model, mc, pipe._to_device(host),
+                         dtype=pipe.dtype, **request_caps(pipe, req))
+    max_len = mc.target_steps - 1
+    seeds = torch.from_numpy(row_seed_array(host["context_ids"].shape[0],
+                                            len(req[0]),
+                                            row_ids(len(req[0]))))
+    out = {"beam": DEC.beam_from_memories(pipe.model, mem, st,
+                                          max_len=max_len,
+                                          beam_size=BEAM_SIZE,
+                                          dtype=pipe.dtype)}
+    for strategy, k, p in DRAWS:
+        out[strategy] = DEC.decode_from_memories(
+            pipe.model, mem, st, prng.prng_key(STRATEGY_SEED, pipe.device),
+            strategy=strategy, max_len=max_len, k=k, p=p, dtype=pipe.dtype,
+            row_seeds=seeds)
+    out["logprob"] = DEC.sequence_logprob_from_memories(
+        pipe.model, mem, st, out["beam"], dtype=pipe.dtype)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def evaluate_corpus(model, mc, corpus, strategy: str):
+    """evaluate() over ``corpus`` (a SyntheticCorpus); checks the
+    predictions' schema and that the BLEU values are finite."""
+    preds, bleu = EV.evaluate(model, mc, corpus, strategy=strategy,
+                              batch_size=corpus.batch_size,
+                              pred_max_len=mc.target_steps - 1,
+                              beam_size=BEAM_SIZE, seed=STRATEGY_SEED)
+    n = corpus.n_batches * corpus.batch_size
+    ids = [p["question_id"] for p in preds]
+    if (len(preds) != n or ids != list(range(n)) or any(
+            set(p) != {"question_id", "gt_question", "pred_question"}
+            or not isinstance(p["pred_question"], str) for p in preds)):
+        raise AssertionError(f"evaluate({strategy}): bad predictions")
+    if set(bleu) != set(M.BLEU_WEIGHTS) or not all(
+            np.isfinite(v) for v in bleu.values()):
+        raise AssertionError(f"evaluate({strategy}): BLEU {bleu}")
+    return preds, bleu
+
+
+def media_probe() -> str:
+    """What the host offers for decoding lecture videos: cv2, libav's
+    shared libraries and dev package, and the ffmpeg binary."""
+    import ctypes.util
+    import importlib.util
+    import shutil
+
+    cv2 = "no"
+    if importlib.util.find_spec("cv2") is not None:
+        try:
+            import cv2 as _cv2
+            cv2 = f"yes {_cv2.__version__}"
+        except ImportError as e:
+            cv2 = f"found but fails to import ({e})"
+    libs = {n: ctypes.util.find_library(n) or "no"
+            for n in ("avformat", "avcodec", "swscale")}
+    pkg = shutil.which("pkg-config")
+    dev = ("no pkg-config" if pkg is None else
+           "yes" if subprocess.run([pkg, "--exists", "libavformat"]
+                                   ).returncode == 0 else "no")
+    return (f"host media: cv2 {cv2}; libav "
+            + ", ".join(f"{n} {v}" for n, v in libs.items())
+            + f"; pkg-config libavformat {dev}; ffmpeg "
+            f"{shutil.which('ffmpeg') or 'no'}")
+
+
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_strategies(card: str, model) -> dict:
+    """Beam search, sampling, top-k and top-p on the flagship at full width
+    (bf16, the int8 tower): beam's launches and routes (K2 on B * K rows),
+    its wall in turns with greedy and one profiled beam decode; the per-row
+    contract of the sampled strategies; a sampled generate() against greedy
+    in turns; every strategy card vs CPU in f32; evaluate() on the card;
+    the host's media tools."""
+    mc, params, state, vocab, i2w = model
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
+                      dtype=torch.bfloat16)
+    req = requests(mc, N_REQUESTS, SEED + 2)
+    rows = N_REQUESTS * BEAM_SIZE
+    beam = dict(strategy="beam", beam_size=BEAM_SIZE)
+    pipe.generate(*req, **beam)              # warm-up
+    torch.cuda.synchronize()
+
+    # beam: launches, routes, and the rows K2 runs on
+    k2_rows = []
+    real = decoder_module.trimodal_attention
+
+    def counting(w_t, b, q, *args, **kw):
+        k2_rows.append(q.shape[0])
+        return real(w_t, b, q, *args, **kw)
+
+    _reset_launches()
+    with mock.patch.object(decoder_module, "trimodal_attention", counting):
+        questions = pipe.generate(*req, **beam)
+        torch.cuda.synchronize()
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
+                trimodal_attention=mc.target_steps - 1,
+                vggish_conv_int8=len(V.POOLS), quantize_s8=len(V.POOLS))
+    log(f"strategies: one beam generate() of {N_REQUESTS} requests, K="
+        f"{BEAM_SIZE}, launched {launches} (want {want}); K2 rows per "
+        f"launch {sorted(set(k2_rows))} (want [{rows}])")
+    if launches != want or set(k2_rows) != {rows}:
+        raise AssertionError(f"beam launches {launches}, K2 rows {k2_rows}")
+    check_routes("strategies: beam K1", lstm_seq.routes, want["lstm_seq"])
+    check_only_route("strategies: beam K2", trimodal_attention.routes,
+                     "tiled", want["trimodal_attention"])
+    check_only_route("strategies: beam int8 conv", V.conv3x3_relu_int8.routes,
+                     "wgmma", want["vggish_conv_int8"])
+    if len(questions) != N_REQUESTS or not all(
+            isinstance(q, str) for q in questions):
+        raise AssertionError("beam generate() did not return one string a "
+                             "request")
+
+    # beam and greedy generate() in turns
+    runs = {"beam": [], "greedy": []}
+    for s in ("beam", "greedy", "greedy", "beam", "beam", "greedy"):
+        runs[s].append(_wall_ms(lambda: pipe.generate(
+            *req, strategy=s, beam_size=BEAM_SIZE)))
+    for s, ms in runs.items():
+        log(f"strategies: {s} generate() of {N_REQUESTS} requests: "
+            + ", ".join(f"{t:.1f}" for t in ms) + " ms ("
+            + ", ".join(f"{N_REQUESTS / t * 1e3:.1f}" for t in ms)
+            + " questions/s; order beam, greedy, greedy, beam, beam, "
+            f"greedy) [{card}]")
+
+    # one beam decode under torch.profiler: K2 at B * K rows
+    host = pipe._pack(*req)
+    mem, st = DEC.encode(pipe.model, mc, pipe._to_device(host),
+                         dtype=pipe.dtype, **request_caps(pipe, req))
+    wall, busy, prof = _device_busy_ms(lambda: DEC.beam_from_memories(
+        pipe.model, mem, st, max_len=mc.target_steps - 1,
+        beam_size=BEAM_SIZE, dtype=pipe.dtype))
+    k2 = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and "attn_tile_kernel" in e.name]
+    k2_ms = sum(k2) / len(k2) / 1e3 if k2 else None
+    log(f"strategies: one beam decode (K={BEAM_SIZE}, {rows} rows, "
+        f"{mc.target_steps - 1} steps) under torch.profiler: wall "
+        f"{wall:.2f} ms, device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+        + f"; K2 {len(k2)} launches, "
+        + ("not measured" if k2_ms is None else f"{k2_ms:.4f} ms each")
+        + f" of device time at {rows} rows [{card}]")
+    if len(k2) != mc.target_steps - 1:
+        raise AssertionError(f"the profiler saw {len(k2)} K2 launches")
+
+    # the sampled strategies: each row alone equals the row in the batch
+    for dtype in (torch.bfloat16, torch.float32):
+        pipe.dtype = dtype
+        for strategy, k, p in DRAWS:
+            together, differ = per_row_check(pipe, req, strategy, k, p,
+                                             ALONE_ROWS)
+            log(f"strategies: {strategy} (k={k}, p={p}) {dtype}: rows "
+                f"{list(ALONE_ROWS)} served alone with their row seeds: "
+                f"{len(ALONE_ROWS) - len(differ)} of {len(ALONE_ROWS)} "
+                f"questions identical to the batch's (differ: {differ}); "
+                f"e.g. {together[0][:60]!r}")
+            if dtype == torch.float32 and differ:
+                raise AssertionError(f"{strategy}: rows {differ} depend on "
+                                     "their batch")
+    pipe.dtype = torch.bfloat16
+
+    # a sampled generate() against greedy, in turns
+    runs = {"greedy": [], "sampling": []}
+    for s in ("greedy", "sampling", "sampling", "greedy"):
+        runs[s].append(_wall_ms(lambda: pipe.generate(
+            *req, strategy=s, seed=STRATEGY_SEED)))
+    log("strategies: generate() of 32 requests, "
+        + "; ".join(f"{s} " + ", ".join(f"{t:.1f}" for t in ms) + " ms"
+                    for s, ms in runs.items())
+        + f" (order greedy, sampling, sampling, greedy) [{card}]")
+
+    # every strategy card vs CPU, f32, float VGGish on both
+    fmc = mc._replace(audio_int8_serving=False)
+    small = tuple(r[:4] for r in req)
+    out = {d: strategy_tokens(QGPipeline(None, fmc, params, state, vocab, i2w,
+                                         device=d, dtype=torch.float32),
+                              small) for d in ("cuda", "cpu")}
+    same = {s: torch.equal(out["cuda"][s], out["cpu"][s])
+            for s in ("beam",) + tuple(d[0] for d in DRAWS)}
+    lp = max_abs(out["cuda"]["logprob"], out["cpu"]["logprob"])
+    log(f"strategies: card vs cpu (f32, float VGGish, 4 requests, seed "
+        f"{STRATEGY_SEED}, row seeds {row_ids(4)}): tokens identical "
+        f"{same}; beam sequence log-prob max|d|={lp:.3e} (tol "
+        f"{LOGPROB_TOL:.0e}) of {out['cpu']['logprob'].tolist()}")
+    if not all(same.values()) or not lp <= LOGPROB_TOL:
+        raise AssertionError(f"strategies card vs CPU: {same}, {lp}")
+
+    # evaluate() on the card over two batches of the synthetic corpus, made
+    # before the timer starts; each batch launches what one generate() does
+    corpus = SyntheticCorpus(mc, i2w, 2, N_REQUESTS, SEED + 6)
+    for i in range(corpus.n_batches):
+        corpus.batch(i)
+    two = {name: 2 * n for name, n in want.items()}
+    for strategy in ("beam", "sampling"):
+        _reset_launches()
+        t0 = time.perf_counter()
+        preds, bleu = evaluate_corpus(pipe.model, mc, corpus, strategy)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ev = _launches()
+        log(f"strategies: evaluate({strategy}) of {len(preds)} questions on "
+            f"the card: bleu {bleu['bleu']:.4f} bleu_1 {bleu['bleu_1']:.4f}, "
+            f"{ms:.1f} ms, launched {ev} (want {two}); "
+            f"e.g. {preds[0]['pred_question'][:60]!r}")
+        if ev != two:
+            raise AssertionError(f"evaluate({strategy}) launches {ev}")
+        check_routes(f"strategies: evaluate({strategy}) K1", lstm_seq.routes,
+                     two["lstm_seq"])
+        check_only_route(f"strategies: evaluate({strategy}) K2",
+                         trimodal_attention.routes, "tiled",
+                         two["trimodal_attention"])
+        check_only_route(f"strategies: evaluate({strategy}) int8 conv",
+                         V.conv3x3_relu_int8.routes, "wgmma",
+                         two["vggish_conv_int8"])
+
+    log(media_probe())
+    return {"beam_launches": launches["trimodal_attention"],
+            "beam_rows": rows, "beam_device_ms": k2_ms}
+
+
 # ----------------------------------------------------------------- K4 phase
 
 # max |kernel - plain| of the forward outputs (h and c sequences, hT, cT),
@@ -882,7 +1173,7 @@ def phase_k4(card: str) -> dict:
 @dataclass
 class SyntheticBatch:
     """The fields of ``mmqg_tpu_torch.data.dataset.Batch`` that training
-    reads."""
+    and evaluation read."""
     context_ids: np.ndarray
     context_len: np.ndarray
     frames: np.ndarray
@@ -891,6 +1182,7 @@ class SyntheticBatch:
     audio_len: np.ndarray
     target_ids: np.ndarray
     target_len: np.ndarray
+    question_id: np.ndarray
     valid: np.ndarray
     questions: List[str]
 
@@ -967,7 +1259,8 @@ class SyntheticCorpus:
             questions.append(" ".join(self.index_to_word[str(w)]
                                       for w in words))
         return SyntheticBatch(ctx, ctx_len, frames, f_len, pcm, a_len, tgt,
-                              tgt_len, np.ones(B, bool), questions)
+                              tgt_len, np.arange(i * B, (i + 1) * B),
+                              np.ones(B, bool), questions)
 
 
 TRAIN_BATCHES = 4     # optimizer steps of the measured epoch (>= 3)
@@ -1773,6 +2066,7 @@ def main() -> None:
     model = flagship()
     launches = phase_main(dev["card"], model)
     phase_card_vs_cpu(model)
+    strategies = phase_strategies(dev["card"], model)
     train_launches = phase_train(dev["card"], model)
     phase_train_card_vs_cpu(model)
     serving = he_serving(model)
@@ -1797,7 +2091,7 @@ def main() -> None:
                    "merged by the last block of each tile (atomic counter)",
          "source": "mmqg_tpu_torch/csrc/trimodal_attention.cu",
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
-         "launches": launches["trimodal_attention"], **k2},
+         "launches": launches["trimodal_attention"], **strategies, **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
          "design": "K1's persistent sweep emitting h, c and gates + "
                    "mma.sync input GEMM",

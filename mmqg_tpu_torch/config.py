@@ -134,6 +134,8 @@ class Config:
     def train_file(self) -> Path: return self.data_path / "train_questions.json"
     @property
     def val_file(self) -> Path: return self.data_path / "val_questions.json"
+    @property
+    def test_file(self) -> Path: return self.data_path / "test_questions.json"
 
     # ------------------------------------------------------------- lifecycle
     def ensure_dirs(self) -> "Config":

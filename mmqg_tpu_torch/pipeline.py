@@ -1,16 +1,17 @@
 """QGPipeline -- the serving API: transcript, frames and audio in, questions
-out (``mmqg_tpu/pipeline.py``, greedy decoding).
+out (``mmqg_tpu/pipeline.py``).
 
     pipe = QGPipeline.from_checkpoint(config, alias="best", device="cuda")
     questions = pipe.generate(
         contexts=["the lecturer explains gradient descent ..."],
         frames=[frames_u8],   # (T, H, W, 3) uint8 per example, or None
         audio=[pcm_i16],      # int16 mono 16 kHz per example, or None
-        strategy="greedy")
+        strategy="beam")
 
 Requests are packed on the host into one fixed-shape batch, with AV buffers
 at the batch's bucket sizes, exactly as the JAX pipeline packs them; the
-batch then goes to ``device`` and through encode and the greedy decode.
+batch then goes to ``device`` and through encode and the decode of the
+chosen strategy (``decode.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,27 @@ import torch
 from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
+from mmqg_tpu_torch.config import Config
 from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
+from mmqg_tpu_torch.utils import prng
 from mmqg_tpu_torch.utils.device import resolve_device
+
+
+def row_seed_array(rows: int, n: int,
+                   row_seeds: Optional[Sequence[int]] = None) -> np.ndarray:
+    """(rows,) int32 per-row stream identities of a batch of ``n`` requests
+    packed into ``rows`` rows: the row index, with the first ``n`` replaced
+    by ``row_seeds`` wrapped into int32 (int64, masked to 32 bits, viewed
+    as int32), as the JAX pipeline does."""
+    seeds = np.arange(rows, dtype=np.int32)
+    if row_seeds is not None:
+        wrapped = ((np.asarray(list(row_seeds), np.int64) & 0xFFFFFFFF)
+                   .astype(np.uint32).view(np.int32))
+        if len(wrapped) < n:
+            raise ValueError(f"{len(wrapped)} row_seeds for {n} requests")
+        seeds[:n] = wrapped[:n]
+    return seeds
 
 
 class QGPipeline:
@@ -176,6 +195,19 @@ class QGPipeline:
         return [" ".join(ws) for ws in
                 DEC.tokens_to_words(np.asarray(tokens), self.index_to_word)]
 
+    def av_bucket_key(self, frames: Optional[np.ndarray],
+                      audio: Optional[np.ndarray]) -> tuple:
+        """(frames bucket, audio bucket) of one example: the grouping key
+        of coalesced batching (the decode is keyed on these caps)."""
+        mc = self.mc
+        fb = (DEC.frames_bucket(
+            mc, np.array([len(frames) if frames is not None else 1]))
+            if mc.mode in ("text_video", "trimodal") else None)
+        ab = (DEC.audio_bucket(
+            mc, np.array([len(audio) if audio is not None else 0]))
+            if mc.mode == "trimodal" else None)
+        return (fb, ab)
+
     # ----------------------------------------------------------- serving
     def generate(self, contexts: Sequence[str],
                  frames: Optional[Sequence[Optional[np.ndarray]]] = None,
@@ -204,14 +236,16 @@ class QGPipeline:
         for the tokens and returns the questions. On the card the kernels
         run asynchronously, so a caller can pack the next batch meanwhile.
 
-        Only ``strategy="greedy"`` is ported; the others raise
-        NotImplementedError. Greedy ignores ``beam_size``, ``topk``,
-        ``top_p``, ``seed`` and ``row_seeds``, as in the JAX pipeline.
+        ``strategy``: greedy, sampling, topk (``topk``), topp (``top_p``) or
+        beam (``beam_size``, else ``config.beam_size``). The sampling
+        strategies draw from ``PRNGKey(seed)`` with one stream per row:
+        ``row_seeds`` (any ints, wrapped into int32 as the JAX pipeline
+        wraps them) give each request a stable identity, so its question
+        is the same whatever batch it rides in; they default to the row
+        index, and padded rows take their index. Greedy and beam ignore
+        ``seed`` and ``row_seeds``; greedy builds no key.
         ``frames_cap``/``audio_cap`` pin the AV buckets and the packed buffer
         shapes instead of deriving them from the request (see ``_pack``)."""
-        if strategy != "greedy":
-            raise NotImplementedError(
-                f"strategy={strategy!r}: only greedy decoding is ported so far")
         n = len(contexts)
         host = self._pack(contexts, frames, audio, frames_cap=frames_cap,
                           audio_cap=audio_cap)
@@ -222,7 +256,23 @@ class QGPipeline:
         fcap = (min(int(frames_cap), mc.av_max_length)
                 if frames_cap is not None
                 else DEC.frames_bucket(mc, host["frames_len"]))
-        toks = DEC.decode_batch(self.model, mc, self._to_device(host),
-                                max_len=mc.target_steps - 1, audio_cap=cap,
-                                frames_cap=fcap, dtype=self.dtype)
+        batch = self._to_device(host)
+        max_len = mc.target_steps - 1
+        if strategy == "beam":
+            toks = DEC.beam_decode_batch(
+                self.model, mc, batch, max_len=max_len,
+                beam_size=beam_size or (Config if self.config is None
+                                        else self.config).beam_size,
+                audio_cap=cap, frames_cap=fcap, dtype=self.dtype)
+        else:
+            rng = seeds = None
+            if strategy != "greedy":
+                rows = host["context_ids"].shape[0]
+                seeds = torch.from_numpy(row_seed_array(rows, n, row_seeds))
+                rng = prng.prng_key(seed, self.device)
+            toks = DEC.decode_batch(self.model, mc, batch, rng,
+                                    strategy=strategy, max_len=max_len,
+                                    k=topk, p=top_p, audio_cap=cap,
+                                    frames_cap=fcap, dtype=self.dtype,
+                                    row_seeds=seeds)
         return lambda: self._to_words(toks.cpu().numpy())[:n]

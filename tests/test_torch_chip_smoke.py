@@ -109,6 +109,46 @@ def test_int8_card_vs_cpu_driving_rehearsal_on_cpu():
     assert bool(past.any()) and not bool(mem_q.enc_audio[past].any())
 
 
+def test_strategies_phase_rehearsal_on_cpu():
+    """The strategies phase's driving at tiny widths on the CPU: beam and
+    the sampled strategies through generate(), the per-row check (every
+    row served alone equals its row in the batch), every strategy's tokens
+    from two pipelines, evaluate() over the synthetic corpus, and the media
+    probe; the kernel wrappers run their plain versions and count nothing."""
+    mc, params, state, i2w = _tiny_train_model()
+    vocab = {w: int(i) for i, w in i2w.items()}
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
+                      dtype=torch.float32)
+    req = chip_smoke.requests(mc, 5, seed=3)
+    chip_smoke._reset_launches()
+    beam = pipe.generate(*req, strategy="beam",
+                         beam_size=chip_smoke.BEAM_SIZE)
+    assert len(beam) == 5 and all(isinstance(q, str) for q in beam)
+    for strategy, k, p in chip_smoke.DRAWS:
+        together, differ = chip_smoke.per_row_check(pipe, req, strategy, k, p,
+                                                    range(5))
+        assert len(together) == 5 and differ == []
+    ids = chip_smoke.row_ids(6)
+    assert max(ids) >= 2**31 and min(ids) < 0
+    small = tuple(r[:4] for r in req)
+    a = chip_smoke.strategy_tokens(pipe, small)
+    other = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
+                       dtype=torch.float32)
+    b = chip_smoke.strategy_tokens(other, small)
+    assert set(a) == {"beam", "sampling", "topk", "topp", "logprob"}
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+    assert a["beam"].shape == (4, mc.target_steps - 1)
+    assert bool(torch.isfinite(a["logprob"]).all())
+    corpus = chip_smoke.SyntheticCorpus(mc, i2w, 2, 4, seed=4)
+    for strategy in ("beam", "sampling"):
+        preds, bleu = chip_smoke.evaluate_corpus(pipe.model, mc, corpus,
+                                                 strategy)
+        assert [p["question_id"] for p in preds] == list(range(8))
+    assert set(chip_smoke._launches().values()) == {0}
+    assert chip_smoke.media_probe().startswith("host media: cv2 ")
+
+
 def test_bound_is_the_larger_of_operations_and_bytes():
     b = chip_smoke.bound(989e12, 0, torch.bfloat16)
     assert b == {"bound_ms": 1000.0, "bound_by": "operations"}

@@ -152,10 +152,17 @@ def test_bf16_decode_band(model):
 
 
 def test_only_greedy_is_ported(model):
+    """Every strategy of the JAX decode is ported now (their parity is in
+    test_torch_decode_strategies.py): an unknown one raises ValueError, as
+    in JAX, before any encoding; the non-attention decoder is still not
+    ported."""
     mc, _, _, port = model
-    with pytest.raises(NotImplementedError, match="greedy"):
-        DEC.decode_batch(port, TQ.ModelConfig(**mc._asdict()),
-                         torch_batch(tiny_batch(mc)), strategy="beam")
+    tmc = TQ.ModelConfig(**mc._asdict())
+    for strategy in ("beam", "nucleus"):
+        with pytest.raises(ValueError, match="unknown strategy"):
+            DEC.decode_batch(port, tmc, None, strategy=strategy)
+    with pytest.raises(NotImplementedError, match="ported"):
+        TQ.check_supported(tmc._replace(decoder="non_attn"))
 
 
 def test_tokens_to_words_matches_jax():

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mmqg_tpu.data.vocab import END_ID
 from mmqg_tpu.models import qg_model as JQ
 from mmqg_tpu.ops.attention import AttnParams
 from mmqg_tpu_torch.models.qg_model import init_params
@@ -51,3 +52,35 @@ def tiny_batch(mc, B: int = 4, seed: int = 1):
 def torch_batch(batch, device="cpu"):
     return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def short_av_batch(mc, B: int = 4, seed: int = 7):
+    """``tiny_batch`` with AV lengths in a smaller bucket than av_max."""
+    b = tiny_batch(mc, B=B, seed=seed)
+    b["frames_len"] = np.resize(np.asarray([1, 2, 2, 1], np.int32), B)
+    win = mc.stft_window + mc.stft_hop * (mc.mel_frames - 1)  # one example
+    b["audio_len"] = np.resize(np.asarray([win, 10, 2 * win, win], np.int32),
+                               B)
+    return b
+
+
+def peaked(params, seed: int = 9, end_twin: int = 18,
+           end_gap: float = 0.5):
+    """The decoder of a random ``tiny_model`` made input-dependent and
+    peaked, as a trained one is: its LSTM weights x4, its vocab projection
+    x20 with random biases, the embedding x4. With the initial scales every
+    row's logits are nearly the same flat distribution, so beam search and
+    top-k would choose among near-ties. ``<end>``'s logit follows token
+    ``end_twin``'s, ``end_gap`` below it, so that some rows end early."""
+    rng = np.random.RandomState(seed)
+    dec = params["decoder"]
+    for layer in dec["lstm"]["layers"]:
+        layer["wx"] = layer["wx"] * 4
+        layer["wh"] = layer["wh"] * 4
+    dec["out"]["w"] = dec["out"]["w"] * 20
+    dec["out"]["b"] = (0.5 * rng.randn(*dec["out"]["b"].shape)).astype(
+        np.float32)
+    dec["out"]["w"][:, END_ID] = dec["out"]["w"][:, end_twin]
+    dec["out"]["b"][END_ID] = dec["out"]["b"][end_twin] - end_gap
+    params["embedding"]["table"] = params["embedding"]["table"] * 4
+    return params
