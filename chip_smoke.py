@@ -63,6 +63,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 13. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
             generate() with the static scales (quantize_s8 once: the later
             quantizes are the convs' epilogues)
+14. video   lecture mp4s in, questions out, on the flagship (bf16, int8
+            tower): 16 mp4s of 30-120 s at 320 x 240, 24 fps, written by
+            cv2, with subtitles and staged 44.1 kHz stereo wavs, 20 spans
+            of 4-30 s. One generate_from_video, generate_from_videos per
+            video (4 prep workers) and coalesced (up to 32 rows a batch), and
+            a sequential baseline (every prep, then one generate a video):
+            each dispatched batch must launch K1 4x (persistent), K2 21x
+            (tiled), the int8 conv 5x (wgmma) and quantize_s8 5x; every video
+            must take the frame route the host supports (native where libav
+            loads, else cv2) and its audio from the staged wav; a corrupt and
+            a missing mp4 error alone; in f32 on 4 videos every path gives
+            the same questions, greedy and sampled (bf16: printed). Prints
+            host prep ms by part, videos/s and questions/s per path, the
+            completion times' p50 and p90 and the batches
+15. serve   the JSONL daemon: serve() in process on 64 requests (staged and
+            raw-video, one malformed line), greedy, max_batch 32, linger 25
+            ms: every id answered once, the launches per dispatched batch as
+            in 14; then `python -m mmqg_tpu_torch.serve` as a process with
+            no --device, on a flagship checkpoint written by the port, fed
+            32 requests on stdin: exit 0, one answer per id, `ready` on
+            stderr
 
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
@@ -82,12 +103,15 @@ any result. It imports nothing of JAX and nothing of the JAX package
 
 from __future__ import annotations
 
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from types import SimpleNamespace
 from typing import List
 from unittest import mock
@@ -99,7 +123,9 @@ from torch.autograd import DeviceType
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch import evaluate as EV
 from mmqg_tpu_torch import metrics as M
+from mmqg_tpu_torch import pipeline as P
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
+from mmqg_tpu_torch.data import native, saliency
 from mmqg_tpu_torch.data.vocab import END_ID
 from mmqg_tpu_torch.models import decoder as decoder_module
 from mmqg_tpu_torch.models import frontends
@@ -121,6 +147,7 @@ from mmqg_tpu_torch.train import Trainer, batch_arrays, to_device
 from mmqg_tpu_torch.utils import prng
 
 SEED = 0
+REPO = Path(__file__).resolve().parent
 # Comparisons on the card run in true f32: cuBLAS matmuls and cuDNN convs
 # would otherwise be free to use TF32 (cuDNN does by default).
 TF32 = False
@@ -2057,6 +2084,554 @@ def phase_calibrate(card: str, serving) -> None:
     check_routes("calibrate: K1", lstm_seq.routes, want["lstm_seq"])
 
 
+# ------------------------------------------------------- raw video, serve
+# 16 lecture mp4s at the JAX package's joint fixture size
+# (scripts/bench_joint_video.py:99-101), 30-120 s each, with the reference
+# corpus's span layout (bench_joint_video.py:142-150: 1.22 questions a
+# video, spans p50 8 s and p90 19 s): 20 questions of 4-30 s
+N_VIDEOS = 16
+N_QUESTIONS = 20
+VIDEO_SIZE = (320, 240)
+VIDEO_FPS = 24
+VIDEO_SECONDS = (30, 120)
+SPAN_SECONDS = (4, 30)
+SPAN_P50_P90 = (8.0, 19.0)
+CAPTION_EVERY_S = 3
+WAV_RATE = 44100      # staged wavs: stereo, resampled and mixed down on load
+PREP_WORKERS = 4
+MAX_COALESCE = 32
+N_F32_VIDEOS = 4
+N_SERVE = 64          # in-process daemon requests, one of them malformed
+N_SERVE_PROCESS = 32  # requests to `python -m mmqg_tpu_torch.serve`
+SERVE_LINGER_MS = 25.0
+
+
+def alpha_vocab(n_vocab: int):
+    """(vocab, index_to_word) over alphabetic words ("wdba", ...), which
+    text normalisation keeps: the serving vocabulary of the raw-video
+    phases (the flagship's "w123" words would be dropped from contexts)."""
+    def word(i):
+        return "w" + "".join(chr(97 + (i // 26 ** k) % 26) for k in (2, 1, 0))
+    words = ["<pad>", "<start>", "<end>"] + [word(i)
+                                             for i in range(3, n_vocab)]
+    return ({w: i for i, w in enumerate(words)},
+            {str(i): w for i, w in enumerate(words)})
+
+
+def write_lecture_mp4(path, seconds: float, seed: int, size=VIDEO_SIZE,
+                      fps: int = VIDEO_FPS) -> None:
+    """A lecture-like mp4 (cv2.VideoWriter, mp4v): a moving colour
+    gradient with slide text (cv2.putText) that changes every second. The
+    phase fails if the host's cv2 cannot write mp4v."""
+    import cv2
+
+    w, h = size
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         size)
+    if not vw.isOpened():
+        raise AssertionError(f"cv2 {cv2.__version__} cannot open an mp4v "
+                             "VideoWriter on this host")
+    ys, xs = np.mgrid[0:h, 0:w + 256]
+    wide = np.stack([(xs + ys // 2) % 256, (2 * xs + ys) % 256,
+                     (xs // 2 + 2 * ys + 64 * seed) % 256],
+                    axis=-1).astype(np.uint8)
+    for i in range(int(seconds * fps)):
+        frame = wide[:, (i * 3) % 256:(i * 3) % 256 + w].copy()
+        sec = i // fps
+        cv2.putText(frame, f"lecture {seed} slide {sec // 10} t={sec}s",
+                    (8, 30 + (sec * 17) % (h - 40)),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.7, (255, 255, 255), 2)
+        vw.write(frame)
+    vw.release()
+
+
+def write_wav(path, pcm: np.ndarray, rate: int) -> None:
+    """int16 PCM, (n,) or (n, channels), as a RIFF/WAVE file (the standard
+    library's ``wave``)."""
+    import wave
+
+    pcm = pcm.reshape(len(pcm), -1).astype("<i2")
+    with wave.open(str(path), "wb") as wf:
+        wf.setnchannels(pcm.shape[1])
+        wf.setsampwidth(2)
+        wf.setframerate(rate)
+        wf.writeframes(pcm.tobytes())
+
+
+def span_layout(rng, durations, n_questions: int,
+                span_s=SPAN_SECONDS, p50_p90=SPAN_P50_P90):
+    """Spans per video: every video one, ``n_questions - len(durations)``
+    videos a second; lengths log-normal with the given p50 and p90,
+    clipped to ``span_s`` and to the video; every third span as "M:SS"
+    strings, the others as seconds."""
+    n = len(durations)
+    counts = np.ones(n, int)
+    counts[rng.choice(n, n_questions - n, replace=False)] += 1
+    sigma = np.log(p50_p90[1] / p50_p90[0]) / 1.2816
+    layout, k = [], 0
+    for d, c in zip(durations, counts):
+        spans = []
+        for _ in range(c):
+            length = float(np.clip(np.exp(rng.normal(np.log(p50_p90[0]),
+                                                     sigma)), *span_s))
+            length = min(round(length), d - 1)
+            start = int(rng.integers(0, d - length))
+            span = (start, start + length)
+            if k % 3 == 0:
+                span = tuple(f"{v // 60}:{v % 60:02d}" for v in span)
+            spans.append(span)
+            k += 1
+        layout.append(spans)
+    return layout
+
+
+def write_srt(path, seconds: float, rng, index_to_word,
+              every: int = CAPTION_EVERY_S) -> None:
+    """A caption every ``every`` s: 5-12 vocabulary words, capitalised."""
+    n_words = len(index_to_word)
+    blocks = []
+    for i, t in enumerate(range(0, int(seconds), every)):
+        words = [index_to_word[str(w)] for w in
+                 rng.integers(3, n_words, int(rng.integers(5, 13)))]
+
+        def ts(v):
+            return f"{v // 3600:02d}:{v // 60 % 60:02d}:{v % 60:02d},000"
+        blocks.append(f"{i + 1}\n{ts(t)} --> {ts(t + every)}\n"
+                      + " ".join(words).capitalize() + "\n")
+    path.write_text("\n".join(blocks))
+
+
+def make_lectures(root, index_to_word, *, n_videos: int = N_VIDEOS,
+                  n_questions: int = N_QUESTIONS, seconds=VIDEO_SECONDS,
+                  size=VIDEO_SIZE, fps: int = VIDEO_FPS,
+                  wav_rate: int = WAV_RATE, seed: int = SEED):
+    """The raw-video phases' jobs, written into ``root`` from ``seed``:
+    per video an mp4, its .srt and its staged wav (stereo tone plus noise,
+    ``tones``), and the span layout. Videos are written on a thread pool
+    (cv2's encoder releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    durations = [int(d) for d in rng.integers(seconds[0], seconds[1] + 1,
+                                              n_videos)]
+    layout = span_layout(rng, durations, n_questions)
+    jobs = []
+    for v, d in enumerate(durations):
+        stem = root / f"lecture{v:02d}"
+        write_srt(stem.with_suffix(".srt"), d, rng, index_to_word)
+        left, right = (tones(rng, d * wav_rate, wav_rate) for _ in range(2))
+        write_wav(stem.with_suffix(".wav"),
+                  np.stack([left, right // 2 + left // 2], axis=1), wav_rate)
+        jobs.append({"video_path": stem.with_suffix(".mp4"),
+                     "spans": layout[v],
+                     "subtitles": stem.with_suffix(".srt"),
+                     "audio_path": stem.with_suffix(".wav")})
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        for f in [ex.submit(write_lecture_mp4, j["video_path"], d, v, size,
+                            fps)
+                  for v, (j, d) in enumerate(zip(jobs, durations))]:
+            f.result()
+    return jobs, durations
+
+
+def counting_dispatches(pipe):
+    """Make ``pipe.generate_async`` record the size and the start
+    (``time.perf_counter()``) of every batch it dispatches (``generate``
+    and the video entry points go through it); returns the two lists it
+    appends to."""
+    sizes: List[int] = []
+    starts: List[float] = []
+    real = pipe.generate_async
+
+    def generate_async(contexts, *args, **kw):
+        sizes.append(len(contexts))
+        starts.append(time.perf_counter())
+        return real(contexts, *args, **kw)
+
+    pipe.generate_async = generate_async
+    return sizes, starts
+
+
+def _reset_media_routes() -> None:
+    for counts in (saliency.frame_routes, P.audio_routes):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def expected_frame_route() -> str:
+    """The frame route the host supports: the native seek-decoder where
+    libav loads, else cv2's linear decode."""
+    return "native" if native.media_available() else "cv2"
+
+
+def check_media_routes(what: str, preps: int, audio: str) -> None:
+    """Every one of ``preps`` videos (or requests) took the frame route the
+    host supports, and the audio route ``audio``."""
+    frames = {r: preps if r == expected_frame_route() else 0
+              for r in saliency.frame_routes}
+    want_audio = {r: preps if r == audio else 0 for r in P.audio_routes}
+    log(f"{what}: frame routes {saliency.frame_routes} (want {frames}), "
+        f"audio routes {P.audio_routes} (want {want_audio})")
+    if saliency.frame_routes != frames or P.audio_routes != want_audio:
+        raise AssertionError(f"{what}: media routes")
+
+
+def check_dispatch_launches(what: str, mc, dispatches: int) -> dict:
+    """Each dispatched batch launched K1 4x (persistent), K2 21x (tiled),
+    the int8 conv 5x (wgmma) and quantize_s8 5x."""
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES,
+                lstm_seq=(mc.text_layers + 1) * dispatches,
+                trimodal_attention=(mc.target_steps - 1) * dispatches,
+                vggish_conv_int8=len(V.POOLS) * dispatches,
+                quantize_s8=len(V.POOLS) * dispatches)
+    log(f"{what}: {dispatches} dispatched batches launched {launches} "
+        f"(want {want})")
+    if launches != want or dispatches == 0:
+        raise AssertionError(f"{what}: kernel launches {launches} != {want}")
+    check_routes(f"{what}: K1", lstm_seq.routes, want["lstm_seq"])
+    check_only_route(f"{what}: K2", trimodal_attention.routes, "tiled",
+                     want["trimodal_attention"])
+    check_only_route(f"{what}: int8 conv", V.conv3x3_relu_int8.routes,
+                     "wgmma", want["vggish_conv_int8"])
+    return launches
+
+
+def n_equal(a, b) -> int:
+    """How many questions of two per-video result lists are equal."""
+    return sum(x == y for qa, qb in zip(a, b) for x, y in zip(qa, qb))
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def host_prep_ms(pipe, jobs) -> dict:
+    """Per video, the three parts of ``_prep_video`` timed apart on this
+    thread: the salient frames (the video's decode), the staged wav (read,
+    mix down, resample, clip) and the subtitles' contexts."""
+    from mmqg_tpu_torch.data import wav as wavio
+    from mmqg_tpu_torch.data.subtitles import (extract_context,
+                                               parse_subtitle_file,
+                                               span_seconds)
+    from mmqg_tpu_torch.data.text_prep import preprocess_text
+
+    def sec(v):
+        return float(span_seconds(v)) if isinstance(v, str) else float(v)
+
+    parts = {"frames": [], "wav": [], "subtitles": []}
+    mc = pipe.mc
+    for job in jobs:
+        spans = [(sec(a), sec(b)) for a, b in job["spans"]]
+        t0 = time.perf_counter()
+        saliency.extract_salient_frames_for_video(
+            job["video_path"], [(int(a * 1000), int(b * 1000))
+                                for a, b in spans],
+            frame_dim=(mc.frame_size, mc.frame_size))
+        t1 = time.perf_counter()
+        pcm = wavio.load_mono_16k(job["audio_path"],
+                                  target_rate=mc.sample_rate)
+        [wavio.clip_span(pcm, mc.sample_rate, a, b) for a, b in spans]
+        t2 = time.perf_counter()
+        caps = parse_subtitle_file(job["subtitles"])
+        [preprocess_text(extract_context(caps, a, b) or "") for a, b in spans]
+        t3 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(dt * 1e3)
+    return parts
+
+
+def phase_video(card: str, model, jobs, durations) -> dict:
+    """Lecture mp4s + subtitles + staged wavs in, questions out, on the
+    flagship at full width (bf16, the int8 tower): one
+    generate_from_video, generate_from_videos per video and coalesced, and
+    a sequential baseline (every prep, then one generate a video), each
+    with its launches and routes per dispatched batch and its media
+    routes; two bad jobs; the f32 pipeline's questions identical across
+    the paths. Returns what the serve phase reuses."""
+    mc, params, state, _, _ = model
+    vocab, i2w = alpha_vocab(mc.n_vocab)
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
+                      dtype=torch.bfloat16)
+    sizes, starts = counting_dispatches(pipe)
+    n_q = sum(len(j["spans"]) for j in jobs)
+    log(f"video: {len(jobs)} lecture mp4s ({VIDEO_SIZE[0]}x{VIDEO_SIZE[1]},"
+        f" {VIDEO_FPS} fps, mp4v; {min(durations)}-{max(durations)} s, "
+        f"{sum(durations)} s in all), {n_q} questions, spans "
+        + ", ".join(str(s) for j in jobs[:4] for s in j["spans"])
+        + f", ...; {media_probe()}")
+    pipe.generate_from_videos(jobs[:4], workers=PREP_WORKERS)   # warm-up
+
+    def drive(what, fn, preps):
+        _reset_launches()
+        _reset_media_routes()
+        sizes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_dispatch_launches(what, mc, len(sizes))
+        check_media_routes(what, preps, "wav")
+        return out, wall, list(sizes)
+
+    job = jobs[0]
+    one, wall, _ = drive("video: generate_from_video", lambda: (
+        pipe.generate_from_video(job["video_path"], job["spans"],
+                                 subtitles=job["subtitles"],
+                                 audio_path=job["audio_path"])), 1)
+    if len(one) != len(job["spans"]) or not all(isinstance(q, str)
+                                                for q in one):
+        raise AssertionError("generate_from_video gave no question a span")
+    log(f"video: generate_from_video of {job['video_path'].name} "
+        f"({durations[0]} s, {len(one)} spans) {wall * 1e3:.1f} ms, e.g. "
+        f"{one[0][:60]!r} [{card}]")
+
+    split = {}
+
+    def sequential():
+        t0 = time.perf_counter()
+        preps = [pipe._prep_video(j["video_path"], j["spans"],
+                                  subtitles=j["subtitles"],
+                                  audio_path=j["audio_path"]) for j in jobs]
+        t1 = time.perf_counter()
+        out = [pipe.generate(*p, row_seeds=[QGPipeline._row_seed(i, k)
+                                            for k in range(len(p[0]))])
+               for i, p in enumerate(preps)]
+        split.update(prep=(t1 - t0) * 1e3,
+                     generate=(time.perf_counter() - t1) * 1e3)
+        return out, preps
+
+    times = {}
+    results = {}
+    for what, fn in (
+            ("sequential", sequential),
+            ("per-video", lambda: pipe.generate_from_videos(
+                jobs, workers=PREP_WORKERS, completion_times=times)),
+            ("coalesced", lambda: pipe.generate_from_videos(
+                jobs, workers=PREP_WORKERS, coalesce=True,
+                max_coalesce=MAX_COALESCE, completion_times=times))):
+        times.clear()
+        t_submit = time.perf_counter()
+        out, wall, batches = drive(f"video: {what}", fn, len(jobs))
+        if what == "sequential":
+            out, preps = out
+        results[what] = out
+        if [len(q or ()) for q in out] != [len(j["spans"]) for j in jobs]:
+            raise AssertionError(f"video: {what} gave {out}")
+        lat = ([(times[i] - t_submit) * 1e3 for i in range(len(jobs))]
+               if times else None)
+        log(f"video: {what}, {len(jobs)} videos, {n_q} questions: "
+            f"{wall * 1e3:.1f} ms, {len(jobs) / wall:.2f} videos/s, "
+            f"{n_q / wall:.2f} questions/s; {len(batches)} dispatched "
+            f"batches of {batches}"
+            + ("" if lat is None else
+               f"; completion p50 {pct(lat, 50):.1f} ms, p90 "
+               f"{pct(lat, 90):.1f} ms after submit")
+            + ("" if what != "sequential" else
+               f"; every prep {split['prep']:.1f} ms, then every generate()"
+               f" {split['generate']:.1f} ms") + f" [{card}]")
+    agree = [n_equal(results["per-video"], results[other])
+             for other in ("sequential", "coalesced")]
+    log(f"video: bf16 questions equal to per-video's: sequential "
+        f"{agree[0]} of {n_q}, coalesced {agree[1]} of {n_q} (printed, not "
+        "checked: bf16 rounds differently at other batch shapes)")
+
+    parts = host_prep_ms(pipe, jobs)
+    log("video: host prep per video on one thread, median (p90) ms: "
+        + ", ".join(f"{k} {np.median(v):.1f} ({pct(v, 90):.1f})"
+                    for k, v in parts.items())
+        + f"; the frames' decode reads the whole file (cv2's linear decode"
+        f" where libav is missing): {sum(parts['frames']) / sum(durations):.2f}"
+        f" ms per video-second [{card}]")
+
+    # two bad jobs among good ones: each errors alone
+    with tempfile.TemporaryDirectory(prefix="mmqg_bad_") as bad_dir:
+        corrupt = Path(bad_dir) / "corrupt.mp4"
+        corrupt.write_bytes(jobs[1]["video_path"].read_bytes()[:300])
+        mixed = [jobs[0], dict(jobs[1], video_path=corrupt), jobs[2],
+                 dict(jobs[3], video_path=Path(bad_dir) / "missing.mp4")]
+        errors = {}
+        out = pipe.generate_from_videos(mixed, workers=PREP_WORKERS,
+                                        coalesce=True, errors=errors)
+    log(f"video: corrupt and missing mp4 among good jobs: errors {errors}, "
+        f"results {[None if q is None else len(q) for q in out]}")
+    if (set(errors) != {1, 3} or out[1] is not None or out[3] is not None
+            or [len(q) for q in (out[0], out[2])]
+            != [len(jobs[0]["spans"]), len(jobs[2]["spans"])]):
+        raise AssertionError("video: bad jobs were not isolated")
+
+    # f32: the same questions whichever path served them
+    pick = sorted(range(len(jobs)), key=lambda i: (-len(jobs[i]["spans"]),
+                                                   durations[i]))
+    few = [jobs[i] for i in sorted(pick[:N_F32_VIDEOS])]
+    pipe32 = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
+                        dtype=torch.float32)
+    for served, name in ((pipe32, "f32"), (pipe, "bf16")):
+        kw = dict(workers=PREP_WORKERS)
+        paths = {
+            "generate_from_video": [served.generate_from_video(
+                j["video_path"], j["spans"], subtitles=j["subtitles"],
+                audio_path=j["audio_path"]) for j in few],
+            "per-video": served.generate_from_videos(few, **kw),
+            "coalesced": served.generate_from_videos(
+                few, coalesce=True, max_coalesce=MAX_COALESCE, **kw),
+            "per-video sampling": served.generate_from_videos(
+                few, strategy="sampling", seed=STRATEGY_SEED, **kw),
+            "coalesced sampling": served.generate_from_videos(
+                few, strategy="sampling", seed=STRATEGY_SEED, coalesce=True,
+                max_coalesce=MAX_COALESCE, **kw)}
+        refs = {k: paths["per-video sampling" if "sampling" in k
+                         else "per-video"] for k in paths}
+        log(f"video: {name}, {len(few)} videos, "
+            f"{sum(len(j['spans']) for j in few)} questions, equal to the "
+            f"per-video path's: "
+            f"{ {k: n_equal(v, refs[k]) for k, v in paths.items()} }")
+        if name == "f32" and any(v != refs[k] for k, v in paths.items()):
+            raise AssertionError(f"video: f32 paths disagree: {paths}")
+    return {"pipe": pipe, "sizes": sizes, "starts": starts, "preps": preps,
+            "jobs": jobs}
+
+
+def serve_requests(jobs, preps, root, n: int, sample_rate: int):
+    """``n`` daemon request lines over the video phase's spans: staged
+    ones (the span's salient frames as .npy and its 16 kHz clip as a wav,
+    the reference's artifact layout) and raw-video ones (video + span +
+    subtitles) in turns, one malformed line in the middle. Returns (lines,
+    ids of the good requests)."""
+    spans = [(i, k) for i, j in enumerate(jobs) for k in range(len(j["spans"]))]
+    lines, ids = [], []
+    for r in range(n - 1):
+        i, k = spans[r % len(spans)]
+        if r % 2 == 0:
+            frames_npy = Path(root) / f"frames_{i}_{k}.npy"
+            audio_wav = Path(root) / f"clip_{i}_{k}.wav"
+            if not frames_npy.exists():
+                np.save(frames_npy, preps[i][1][k])
+                write_wav(audio_wav, preps[i][2][k], sample_rate)
+            req = {"id": r, "context": preps[i][0][k],
+                   "frames_npy": str(frames_npy), "audio_wav": str(audio_wav)}
+        else:
+            req = {"id": r, "video": str(jobs[i]["video_path"]),
+                   "span": list(jobs[i]["spans"][k]),
+                   "subtitles": str(jobs[i]["subtitles"])}
+        lines.append(json.dumps(req))
+        ids.append(r)
+    lines.insert(n // 2, '{"id": "malformed", "context": ')
+    return "\n".join(lines) + "\n", ids
+
+
+def check_answers(what: str, responses, ids, malformed: int) -> None:
+    """Every id answered exactly once with a question, and ``malformed``
+    responses with an error and no id."""
+    answered = sorted(r["id"] for r in responses if "question" in r)
+    errors = [r for r in responses if "error" in r]
+    if (answered != sorted(ids) or len(errors) != malformed
+            or any(r["id"] is not None for r in errors)
+            or len(responses) != len(ids) + malformed):
+        raise AssertionError(f"{what}: answered {answered}, errors {errors}")
+
+
+def write_checkpoint(root, model, **config_kw):
+    """A config.json, vocabulary files and a ``best`` checkpoint of
+    ``model`` (the port's ``save_checkpoint``) under ``root``; returns the
+    config's path. ``config_kw``: the Config fields that describe the
+    model (none for the flagship: the defaults)."""
+    from mmqg_tpu_torch import checkpoint as ckpt
+    from mmqg_tpu_torch.config import Config
+
+    mc, params, state, _, _ = model
+    vocab, i2w = alpha_vocab(mc.n_vocab)
+    root = Path(root)
+    config = Config(output_path=root / "results", data_path=root / "data",
+                    **config_kw)
+    config.data_path.mkdir(parents=True, exist_ok=True)
+    with open(config.vocab_file, "w") as f:
+        json.dump(vocab, f)
+    with open(config.index_to_word_file, "w") as f:
+        json.dump(i2w, f)
+    if qg_model.ModelConfig.from_config(config, n_vocab=len(vocab)) != mc:
+        raise AssertionError("the config does not describe the model")
+    ckpt.save_checkpoint(config.checkpoint_dir, "best",
+                         {"params": params, "model_state": state,
+                          "step": np.zeros((), np.int32)})
+    return config.save(root / "config.json")
+
+
+def phase_serve(card: str, model, video, root) -> None:
+    """The JSONL daemon on the flagship: serve() in process on 64
+    requests (staged and raw-video, one malformed), its launches per
+    dispatched batch; then ``python -m mmqg_tpu_torch.serve`` as a process,
+    with no --device, on 32 requests."""
+    from mmqg_tpu_torch import serve as S
+
+    pipe, sizes, starts = video["pipe"], video["sizes"], video["starts"]
+    mc = pipe.mc
+    text, ids = serve_requests(video["jobs"], video["preps"], root, N_SERVE,
+                               mc.sample_rate)
+    out = io.StringIO()
+    prepped: List[float] = []
+    real_load = S._load_media
+
+    def load(req, p):   # when each request's media is ready
+        media = real_load(req, p)
+        prepped.append(time.perf_counter())
+        return media
+
+    _reset_launches()
+    _reset_media_routes()
+    sizes.clear()
+    starts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(S, "_load_media", load):
+        n = S.serve(pipe, strategy="greedy", max_batch=MAX_COALESCE,
+                    linger_ms=SERVE_LINGER_MS, inp=io.StringIO(text),
+                    out=out, prep_workers=PREP_WORKERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_dispatch_launches("serve", mc, len(sizes))
+    responses = [json.loads(line) for line in out.getvalue().splitlines()]
+    check_answers("serve", responses, ids, 1)
+    lat = [r["latency_ms"] for r in responses if "question" in r]
+    log(f"serve: in process, {n} requests ({len(ids)} good: staged and "
+        f"raw-video in turns; 1 malformed, answered with an error), "
+        f"max_batch {MAX_COALESCE}, linger {SERVE_LINGER_MS} ms: "
+        f"{wall * 1e3:.1f} ms, {len(ids) / wall:.2f} requests/s, latency "
+        f"p10 {pct(lat, 10):.1f} ms, p50 {pct(lat, 50):.1f} ms, p90 "
+        f"{pct(lat, 90):.1f} ms (all read at once); dispatched "
+        f"batches of {sizes}; frame routes {saliency.frame_routes}, audio "
+        f"routes {P.audio_routes} [{card}]")
+    ready = sorted((t - t0) * 1e3 for t in prepped)
+    log(f"serve: timeline, ms from the start: preps ready first "
+        f"{ready[0]:.0f}, half {ready[len(ready) // 2]:.0f}, last "
+        f"{ready[-1]:.0f}; batches dispatched at "
+        + ", ".join(f"{(t - t0) * 1e3:.0f}" for t in starts)
+        + f"; first answer {min(lat):.0f} [{card}]")
+
+    config_path = write_checkpoint(root, model)
+    text, ids = serve_requests(video["jobs"], video["preps"], root,
+                               N_SERVE_PROCESS + 1, mc.sample_rate)
+    text = "".join(line + "\n" for line in text.splitlines()
+                   if "malformed" not in line)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mmqg_tpu_torch.serve", "-c",
+         str(config_path), "--best", "-s", "greedy"], input=text,
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    wall = time.perf_counter() - t0
+    responses = [json.loads(line) for line in proc.stdout.splitlines()]
+    ready = [line for line in proc.stderr.splitlines()
+             if line.startswith("ready")]
+    log(f"serve: `python -m mmqg_tpu_torch.serve -c <flagship config> "
+        f"--best -s greedy` (no --device) on {len(ids)} requests: exit "
+        f"{proc.returncode}, {len(responses)} responses, {ready[:1]}, "
+        f"{wall:.1f} s wall (start, checkpoint load and kernel library "
+        f"included) [{card}]")
+    if proc.returncode != 0 or not ready:
+        raise AssertionError(f"serve process failed:\n{proc.stderr[-4000:]}")
+    check_answers("serve process", responses, ids, 0)
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2073,6 +2648,12 @@ def main() -> None:
     k3 = phase_k3(dev["card"], serving)
     int8 = phase_int8(dev["card"], serving)
     phase_calibrate(dev["card"], serving)
+    with tempfile.TemporaryDirectory(prefix="mmqg_smoke_") as root:
+        t0 = time.perf_counter()
+        jobs, durations = make_lectures(root, alpha_vocab(N_VOCAB)[1])
+        log(f"video: fixtures written in {time.perf_counter() - t0:.1f} s")
+        video = phase_video(dev["card"], model, jobs, durations)
+        phase_serve(dev["card"], model, video, root)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu")]
     if loaded:

@@ -1,5 +1,6 @@
-"""WAV reading and resampling to mono (``mmqg_tpu/data/wav.py``), numpy
-only: RIFF/WAVE PCM16, PCM32 and float32, linear-interpolation resampling."""
+"""WAV reading, resampling to mono and span clipping (``mmqg_tpu/data/wav.py``),
+numpy only: RIFF/WAVE PCM16, PCM32 and float32, linear-interpolation
+resampling, span slicing."""
 
 from __future__ import annotations
 
@@ -66,3 +67,12 @@ def resample_linear(x: np.ndarray, src_rate: int, dst_rate: int) -> np.ndarray:
 def load_mono_16k(path: Path, target_rate: int = 16000) -> np.ndarray:
     samples, rate = read_wav(path)
     return resample_linear(to_mono(samples), rate, target_rate)
+
+
+def clip_span(samples: np.ndarray, rate: int, start_s: float,
+              end_s: float) -> np.ndarray:
+    """The samples of [start_s, end_s): array slicing in place of
+    ``ffmpeg -ss <start> -to <end> -c copy``."""
+    a = max(0, int(round(start_s * rate)))
+    b = min(len(samples), int(round(end_s * rate)))
+    return samples[a:b]

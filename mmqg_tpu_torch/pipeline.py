@@ -1,5 +1,5 @@
-"""QGPipeline -- the serving API: transcript, frames and audio in, questions
-out (``mmqg_tpu/pipeline.py``).
+"""QGPipeline -- the serving API: lecture videos, or transcripts, frames and
+audio, in; questions out (``mmqg_tpu/pipeline.py``).
 
     pipe = QGPipeline.from_checkpoint(config, alias="best", device="cuda")
     questions = pipe.generate(
@@ -7,16 +7,33 @@ out (``mmqg_tpu/pipeline.py``).
         frames=[frames_u8],   # (T, H, W, 3) uint8 per example, or None
         audio=[pcm_i16],      # int16 mono 16 kHz per example, or None
         strategy="beam")
+    questions = pipe.generate_from_video(
+        "lecture.mp4", spans=[(45, 70), ("1:10", "1:31")],
+        subtitles="lecture.srt", audio_path="lecture.wav")
+    per_video = pipe.generate_from_videos(
+        [{"video_path": "a.mp4", "spans": [(3, 9)]}, ...], coalesce=True)
 
 Requests are packed on the host into one fixed-shape batch, with AV buffers
 at the batch's bucket sizes, exactly as the JAX pipeline packs them; the
 batch then goes to ``device`` and through encode and the decode of the
-chosen strategy (``decode.py``).
+chosen strategy (``decode.py``). The video entry points prepare each
+video's spans on the host first (``_prep_video``: salient frames, span
+audio, subtitle contexts), on a thread pool in ``generate_from_videos``,
+and count the audio route that served each video in ``audio_routes``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -27,10 +44,31 @@ from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.config import Config
+from mmqg_tpu_torch.data import native, saliency
+from mmqg_tpu_torch.data import wav as wavio
+from mmqg_tpu_torch.data.subtitles import (extract_context,
+                                           parse_subtitle_file, span_seconds)
+from mmqg_tpu_torch.data.text_prep import preprocess_text
 from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
 from mmqg_tpu_torch.utils import prng
 from mmqg_tpu_torch.utils.device import resolve_device
+
+
+# videos (or serve requests) prepped, by the route that gave their span
+# audio: the native decoder, the ffmpeg binary, a staged wav, or none
+audio_routes = {"native": 0, "ffmpeg": 0, "wav": 0, "none": 0}
+_routes_lock = threading.Lock()  # prep pools count from several threads
+
+# the strategies that draw from per-row streams
+SAMPLED = ("sampling", "topk", "topp")
+# _row_seed packs the job index into the high 16 bits of an int32
+MAX_SAMPLED_JOBS = 1 << 16
+
+
+def count_audio_route(route: str) -> None:
+    with _routes_lock:
+        audio_routes[route] += 1
 
 
 def row_seed_array(rows: int, n: int,
@@ -234,7 +272,9 @@ class QGPipeline:
                        ) -> Callable[[], List[str]]:
         """Queue the decode and return a zero-argument finalizer that waits
         for the tokens and returns the questions. On the card the kernels
-        run asynchronously, so a caller can pack the next batch meanwhile.
+        run asynchronously, so a caller can pack the next batch meanwhile,
+        and a finalizer waits for its own batch only, not for the batches
+        queued after it.
 
         ``strategy``: greedy, sampling, topk (``topk``), topp (``top_p``) or
         beam (``beam_size``, else ``config.beam_size``). The sampling
@@ -275,4 +315,315 @@ class QGPipeline:
                                     k=topk, p=top_p, audio_cap=cap,
                                     frames_cap=fcap, dtype=self.dtype,
                                     row_seeds=seeds)
-        return lambda: self._to_words(toks.cpu().numpy())[:n]
+        if toks.device.type != "cuda":
+            return lambda: self._to_words(toks.numpy())[:n]
+        # the tokens' copy to the host and an event go on the stream now, so
+        # the finalizer waits for this batch alone: a plain .cpu() there
+        # would also wait for every batch dispatched after this one
+        host_toks = torch.empty(toks.shape, dtype=toks.dtype,
+                                pin_memory=True)
+        host_toks.copy_(toks, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+
+        def finalize() -> List[str]:
+            copied.synchronize()
+            return self._to_words(host_toks.numpy())[:n]
+        return finalize
+
+    # ------------------------------------------------ raw-video end-to-end
+    def generate_from_video(self, video_path, spans: Sequence, *,
+                            subtitles=None,
+                            contexts: Optional[Sequence[str]] = None,
+                            audio_path=None, strategy: str = "greedy",
+                            beam_size: Optional[int] = None, topk: int = 1,
+                            top_p: float = 0.9, seed: int = 0) -> List[str]:
+        """A lecture video in, one question per span out: the video's
+        salient frames, span audio and subtitle contexts on the host
+        (``_prep_video``), then ``generate``.
+
+        ``spans``: one (start, end) per question, each seconds (numbers)
+        or "M:SS" strings; the video decodes once for all of them.
+        ``subtitles``: optional .srt/.vtt path; a span's context is the
+        captions that overlap it, normalised by ``preprocess_text``.
+        ``contexts`` overrides the subtitles with explicit text.
+        ``audio_path``: optional wav of the video's audio track; without it
+        the span audio comes from the video itself (the native decoder,
+        else the ffmpeg binary), or is omitted when neither can give it."""
+        contexts, frames, audio = self._prep_video(
+            video_path, spans, subtitles=subtitles, contexts=contexts,
+            audio_path=audio_path)
+        return self.generate(contexts, frames, audio, strategy=strategy,
+                             beam_size=beam_size, topk=topk, top_p=top_p,
+                             seed=seed)
+
+    def _prep_video(self, video_path, spans, *, subtitles=None,
+                    contexts=None, audio_path=None):
+        """The host half of ``generate_from_video``: (contexts, frames,
+        audio) of the spans. numpy, cv2 and the native media library only,
+        no torch and no device, so that it runs on pool threads."""
+        def _sec(v) -> float:
+            return float(span_seconds(v)) if isinstance(v, str) else float(v)
+
+        spans_s = [(_sec(a), _sec(b)) for a, b in spans]
+        spans_ms = [(int(a * 1000), int(b * 1000)) for a, b in spans_s]
+
+        frames = saliency.extract_salient_frames_for_video(
+            video_path, spans_ms,
+            frame_dim=(self.mc.frame_size, self.mc.frame_size))
+
+        # contexts: explicit > subtitles > empty
+        if contexts is None:
+            contexts = [""] * len(spans_s)
+            if subtitles is not None:
+                caps = parse_subtitle_file(subtitles)
+                contexts = [extract_context(caps, a, b) or ""
+                            for a, b in spans_s]
+        contexts = [preprocess_text(c) or "" for c in contexts]
+
+        if audio_path is not None:
+            pcm = wavio.load_mono_16k(audio_path,
+                                      target_rate=self.mc.sample_rate)
+            audio = [wavio.clip_span(pcm, self.mc.sample_rate, a, b)
+                     for a, b in spans_s]
+            count_audio_route("wav")
+        else:
+            audio = self._span_audio(video_path, spans_s)
+        return contexts, frames, audio
+
+    @staticmethod
+    def _row_seed(job_i: int, span_k: int) -> int:
+        """The sampling identity of a job's span: (job index, span index)
+        packed into one int32, wrapped in two's complement. The per-video
+        and coalesced paths share it (and it equals generate()'s row index
+        for job 0), so a sampled question is the same whichever batch
+        served it. Unique for job indices below ``MAX_SAMPLED_JOBS`` and
+        span indices below 65536; ``generate_from_videos`` refuses more."""
+        v = ((job_i << 16) | span_k) & 0xFFFFFFFF
+        return v - 0x100000000 if v >= 0x80000000 else v
+
+    def _prep_job(self, job: Dict):
+        """One job dict -> (contexts, frames, audio), for both modes of
+        ``generate_from_videos``; raises for a malformed job (the caller
+        records it against that job alone)."""
+        spans = job["spans"]
+        if len(spans) >= (1 << 16):
+            raise ValueError(
+                "at most 65535 spans per job (the (job, span) sampling "
+                "identity packs span into 16 bits)")
+        return self._prep_video(
+            job["video_path"], spans,
+            subtitles=job.get("subtitles"),
+            contexts=job.get("contexts"),
+            audio_path=job.get("audio_path"))
+
+    @staticmethod
+    def _record_job_error(errors: Optional[Dict[int, str]], i: int,
+                          e: Exception) -> None:
+        """A failing job costs only itself: its message goes into
+        ``errors``, or into a warning when the caller passed none."""
+        msg = f"{type(e).__name__}: {e}"
+        if errors is not None:
+            errors[i] = msg
+        else:
+            warnings.warn(f"generate_from_videos: job {i} failed ({msg}); "
+                          "its result is None — pass errors={} to collect "
+                          "failures", RuntimeWarning)
+
+    def generate_from_videos(
+        self,
+        jobs: Sequence[Dict],
+        *,
+        workers: int = 4,
+        strategy: str = "greedy",
+        beam_size: Optional[int] = None,
+        topk: int = 1,
+        top_p: float = 0.9,
+        seed: int = 0,
+        completion_times: Optional[Dict[int, float]] = None,
+        coalesce: bool = False,
+        max_coalesce: int = 64,
+        errors: Optional[Dict[int, str]] = None,
+    ) -> List[Optional[List[str]]]:
+        """Many videos in, questions out, in job order, with host prep on a
+        ``workers``-wide thread pool overlapping the decodes.
+
+        ``jobs``: one dict per video with ``video_path``, ``spans`` and
+        optionally ``subtitles`` / ``contexts`` / ``audio_path`` (the
+        ``generate_from_video`` keywords). Per video (the default), each
+        video's batch is dispatched from this thread as its prep lands,
+        and the questions are read back in dispatch order.
+
+        ``coalesce``: pack several videos' questions into each dispatched
+        batch instead, grouped by AV bucket pair (``av_bucket_key``): a
+        group dispatches as soon as it holds ``max_coalesce`` rows, and the
+        remainders once every prep has landed. Every row decodes and
+        samples independently (its stream is ``_row_seed(job, span)``), so
+        both modes return the same questions for every strategy. A sampled
+        call takes at most ``MAX_SAMPLED_JOBS`` jobs (ValueError).
+
+        ``completion_times``: optional dict receiving, per job index, the
+        ``time.perf_counter()`` at which that job's questions were on the
+        host. ``errors``: optional dict receiving ``{job_index: message}``
+        for jobs whose prep, dispatch or readback failed; such a job
+        returns None in its slot and disturbs no other."""
+        jobs = list(jobs)
+        if strategy in SAMPLED and len(jobs) > MAX_SAMPLED_JOBS:
+            raise ValueError(
+                f"{len(jobs)} jobs: a sampled generate_from_videos takes at "
+                f"most {MAX_SAMPLED_JOBS} jobs (the (job, span) sampling "
+                "identity packs the job index into 16 bits); split the call")
+        if coalesce:
+            return self._generate_from_videos_coalesced(
+                jobs, workers=workers, strategy=strategy,
+                beam_size=beam_size, topk=topk, top_p=top_p, seed=seed,
+                completion_times=completion_times,
+                max_coalesce=max_coalesce, errors=errors)
+        finalizers: List = [None] * len(jobs)
+        dispatch_order: List[int] = []
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+            futures = [ex.submit(self._prep_job, job) for job in jobs]
+            index = {f: i for i, f in enumerate(futures)}
+            # dispatch in completion order, collect in job order
+            for fut in cf.as_completed(futures):
+                i = index[fut]
+                try:
+                    contexts, frames, audio = fut.result()
+                    finalizers[i] = self.generate_async(
+                        contexts, frames, audio, strategy=strategy,
+                        beam_size=beam_size, topk=topk, top_p=top_p,
+                        seed=seed,
+                        row_seeds=[self._row_seed(i, k)
+                                   for k in range(len(contexts))])
+                except Exception as e:  # this job only; companions proceed
+                    self._record_job_error(errors, i, e)
+                    continue
+                dispatch_order.append(i)
+        results: List[Optional[List[str]]] = [None] * len(jobs)
+        for i in dispatch_order:
+            results[i] = finalizers[i]()
+            if completion_times is not None:
+                completion_times[i] = time.perf_counter()
+        return results
+
+    def _generate_from_videos_coalesced(
+        self, jobs, *, workers, strategy, beam_size, topk, top_p, seed,
+        completion_times, max_coalesce, errors=None,
+    ) -> List[Optional[List[str]]]:
+        """The coalescing mode of ``generate_from_videos`` (see there).
+        Unlike the JAX package, a job whose batch failed at dispatch or
+        readback returns None, not a partly filled list."""
+        groups: Dict[tuple, List[tuple]] = {}
+        inflight: List = []  # (finalizer, chunk) in dispatch order
+        n_rows: List[Optional[int]] = [None] * len(jobs)
+        failed: set = set()
+
+        def fail(i: int, e: Exception) -> None:
+            self._record_job_error(errors, i, e)
+            failed.add(i)
+
+        def dispatch_rows(key: tuple, rows: List[tuple]):
+            return self.generate_async(
+                [r[2] for r in rows], [r[3] for r in rows],
+                [r[4] for r in rows], strategy=strategy,
+                beam_size=beam_size, topk=topk, top_p=top_p, seed=seed,
+                frames_cap=key[0], audio_cap=key[1],
+                row_seeds=[self._row_seed(r[0], r[1]) for r in rows])
+
+        def dispatch(key: tuple, chunk: List[tuple]) -> None:
+            try:
+                inflight.append((dispatch_rows(key, chunk), chunk))
+            except Exception:
+                # a row that prepped fine can still break packing (wrong
+                # frame geometry): one dispatch a row, so that the bad row
+                # fails its own job alone
+                for row in chunk:
+                    try:
+                        inflight.append((dispatch_rows(key, [row]), [row]))
+                    except Exception as e:
+                        fail(row[0], e)
+
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+            futures = {ex.submit(self._prep_job, job): i
+                       for i, job in enumerate(jobs)}
+            for fut in cf.as_completed(futures):
+                i = futures[fut]
+                try:
+                    contexts, frames, audio = fut.result()
+                except Exception as e:  # this job only
+                    fail(i, e)
+                    continue
+                n_rows[i] = len(contexts)
+                auds = audio if audio is not None else [None] * len(contexts)
+                for k, (c, fr, au) in enumerate(zip(contexts, frames, auds)):
+                    key = self.av_bucket_key(fr, au)
+                    # (job, span) ride along: one job's spans can land in
+                    # different groups, so span order is restored by index
+                    g = groups.setdefault(key, [])
+                    g.append((i, k, c, fr, au))
+                    if len(g) >= max_coalesce:
+                        dispatch(key, g)
+                        groups[key] = []
+        for key in sorted(groups, key=str):  # a deterministic drain order
+            if groups[key]:
+                dispatch(key, groups[key])
+        results: List[Optional[List[str]]] = [
+            None if n is None else [None] * n for n in n_rows]
+        for fin, chunk in inflight:  # dispatch order
+            try:
+                words = fin()
+            except Exception as e:  # this chunk's jobs only
+                for (i, *_rest) in chunk:
+                    fail(i, e)
+                continue
+            t = time.perf_counter()
+            for (i, k, *_), w in zip(chunk, words):
+                results[i][k] = w
+                if completion_times is not None:
+                    completion_times[i] = t  # the last chunk of job i
+        for i in failed:
+            results[i] = None
+        return results
+
+    def _span_audio(self, video_path, spans_s):
+        """Each span's PCM from the video's own audio track: the native
+        decoder (one open for every span), else the ffmpeg binary, else
+        None; a file the native decoder finds without an audio stream gives
+        None at once. Counts the route in ``audio_routes``."""
+        if self.mc.mode != "trimodal":
+            count_audio_route("none")
+            return None
+        if native.media_available():
+            try:
+                decoded = native.decode_audio_spans(
+                    video_path, self.mc.sample_rate, spans_s)
+                if decoded is None:
+                    decoded = [native.decode_audio(video_path,
+                                                   self.mc.sample_rate,
+                                                   start=a, end=b)
+                               for a, b in spans_s]
+                if all(d is not None for d in decoded):
+                    count_audio_route("native")
+                    return decoded
+                # this libav build cannot decode the file: try ffmpeg
+            except ValueError:     # the video has no audio stream
+                count_audio_route("none")
+                return None
+        if shutil.which("ffmpeg"):
+            tmp = tempfile.NamedTemporaryFile(suffix=".wav", delete=False)
+            tmp.close()
+            try:
+                subprocess.run(
+                    ["ffmpeg", "-hide_banner", "-loglevel", "panic", "-y",
+                     "-i", str(video_path), "-ac", "1",
+                     "-ar", str(self.mc.sample_rate), "-vn", tmp.name],
+                    check=True)
+                pcm = wavio.load_mono_16k(tmp.name,
+                                          target_rate=self.mc.sample_rate)
+            finally:
+                os.unlink(tmp.name)
+            count_audio_route("ffmpeg")
+            return [wavio.clip_span(pcm, self.mc.sample_rate, a, b)
+                    for a, b in spans_s]
+        count_audio_route("none")
+        return None

@@ -248,3 +248,79 @@ def _assign_leaves(tree, it):
             _assign_leaves(tree[k], it)
         else:
             tree[k] = next(it)
+
+
+def test_video_and_serve_phases_rehearsal_on_cpu(tmp_path):
+    """The video and serve phases' building and checking at a tiny size on
+    the CPU: lecture fixtures and their span layout, the dispatch counter,
+    the media route check, the daemon's request lines answered by serve()
+    (every id once, the malformed line an error), and a checkpoint the
+    port loads."""
+    import io
+    import json
+
+    from mmqg_tpu_torch.config import Config
+    from mmqg_tpu_torch.serve import serve
+
+    tiny = dict(glove_emb_dim=8, text_lstm_hidden_dim=16, text_lstm_layers=2,
+                dec_lstm_hidden_dim=16, dec_lstm_layers=2,
+                video_hidden_dim=16, audio_emb=8, flatten_dim=10,
+                context_max_length=12, av_max_length=5, question_max_length=4,
+                frame_size=32, mel_frames_per_example=16, mel_bins=16,
+                audio_sample_rate=1600, stft_window=64, stft_hop=32)
+    mc = ModelConfig.from_config(Config(**tiny), n_vocab=50)
+    params, state = init_params(mc, seed=0)
+    vocab, i2w = chip_smoke.alpha_vocab(mc.n_vocab)
+    assert len(vocab) == 50 and all(w.isalpha() for w in list(vocab)[3:])
+    jobs, durations = chip_smoke.make_lectures(
+        tmp_path, i2w, n_videos=3, n_questions=4, seconds=(6, 9),
+        size=(64, 48), fps=10, wav_rate=8000, seed=1)
+    assert sum(len(j["spans"]) for j in jobs) == 4 and len(durations) == 3
+    for job, d in zip(jobs, durations):
+        assert job["video_path"].exists() and job["audio_path"].exists()
+        assert "-->" in job["subtitles"].read_text()
+    # the flagship's layout: 20 spans of 4-30 s, some as "M:SS"
+    rng = np.random.default_rng(0)
+    layout = chip_smoke.span_layout(rng, list(rng.integers(30, 121, 16)),
+                                    20)
+    spans = [s for v in layout for s in v]
+    assert len(spans) == 20 and {len(v) for v in layout} == {1, 2}
+    secs = [(int(a.split(":")[0]) * 60 + int(a.split(":")[1]),
+             int(b.split(":")[0]) * 60 + int(b.split(":")[1]))
+            if isinstance(a, str) else (a, b) for a, b in spans]
+    assert all(4 <= b - a <= 30 for a, b in secs)
+    assert any(isinstance(s[0], str) for s in spans)
+
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
+                      dtype=torch.float32)
+    sizes, starts = chip_smoke.counting_dispatches(pipe)
+    chip_smoke._reset_media_routes()
+    per_video = pipe.generate_from_videos(jobs, workers=2)
+    assert len(sizes) == len(starts) == 3 and sum(sizes) == 4
+    assert starts == sorted(starts)
+    chip_smoke.check_media_routes("rehearsal", 3, "wav")
+    coalesced = pipe.generate_from_videos(jobs, workers=2, coalesce=True)
+    assert coalesced == per_video and chip_smoke.n_equal(
+        coalesced, per_video) == 4
+
+    preps = [pipe._prep_video(j["video_path"], j["spans"],
+                              subtitles=j["subtitles"],
+                              audio_path=j["audio_path"]) for j in jobs]
+    assert all(c for p in preps for c in p[0])  # contexts kept their words
+    text, ids = chip_smoke.serve_requests(jobs, preps, tmp_path, 9,
+                                          mc.sample_rate)
+    reqs = [json.loads(line) for line in text.splitlines()
+            if "malformed" not in line]
+    assert len(reqs) == 8 and {"video" in r for r in reqs} == {True, False}
+    out = io.StringIO()
+    assert serve(pipe, strategy="greedy", max_batch=32, linger_ms=25.0,
+                 inp=io.StringIO(text), out=out) == 9
+    chip_smoke.check_answers("rehearsal", [
+        json.loads(line) for line in out.getvalue().splitlines()], ids, 1)
+
+    path = chip_smoke.write_checkpoint(tmp_path, (mc, params, state, None,
+                                                  None), **tiny)
+    loaded = QGPipeline.from_checkpoint(Config.load(path), device="cpu",
+                                        dtype=torch.float32)
+    assert loaded.vocab == vocab and loaded.mc == mc
+    assert loaded.generate(["wabc"]) == pipe.generate(["wabc"])

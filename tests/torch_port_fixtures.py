@@ -2,14 +2,20 @@
 
 One tiny tri-modal model (random weights from a numpy seed, in the JAX
 package's pytree) and one batch of inputs from a numpy seed; both packages
-get the same numbers as numpy arrays.
+get the same numbers as numpy arrays. For the raw-video tests: the two
+packages' pipelines on one such model in f32, and lecture-like media (an
+mp4 written by cv2, subtitles, a stereo wav).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
+from mmqg_tpu.data import wav as jwav
 from mmqg_tpu.data.vocab import END_ID
 from mmqg_tpu.models import qg_model as JQ
 from mmqg_tpu.ops.attention import AttnParams
@@ -84,3 +90,81 @@ def peaked(params, seed: int = 9, end_twin: int = 18,
     dec["out"]["b"][END_ID] = dec["out"]["b"][end_twin] - end_gap
     params["embedding"]["table"] = params["embedding"]["table"] * 4
     return params
+
+
+def write_cv2_video(path, seconds=6, fps=10, size=(64, 48), seed=0):
+    """An mp4 (mp4v) whose frames change over time: a moving gradient and
+    noise, so resizes and frame choices are visible in the bytes."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         size)
+    assert vw.isOpened(), "cv2.VideoWriter cannot open mp4v"
+    xs = np.arange(size[0])[None, :, None]
+    for i in range(int(seconds * fps)):
+        frame = ((xs * 4 + i * 7 + np.arange(3) * 40) % 256).repeat(
+            size[1], axis=0).astype(np.uint8)
+        frame = np.clip(frame + rng.randint(0, 20, frame.shape), 0,
+                        255).astype(np.uint8)
+        vw.write(frame)
+    vw.release()
+    return path
+
+
+N_WORDS = 40
+# alphabetic words, so that preprocess_text keeps them in a context
+WORDS = ["<pad>", "<start>", "<end>"] + [
+    "x" + chr(97 + i // 26) + chr(97 + i % 26) for i in range(N_WORDS - 3)]
+
+
+@contextlib.contextmanager
+def f32_pipelines(config):
+    """(JAX pipeline, port pipeline) on one tiny model with a peaked
+    decoder over ``WORDS``, both in f32 on the CPU: the JAX package's
+    ``decode_batch`` is run in f32 while the context is open."""
+    import jax.numpy as jnp
+    import pytest
+
+    from mmqg_tpu import decode as JDEC
+    from mmqg_tpu.pipeline import QGPipeline as JaxPipeline
+    from mmqg_tpu_torch.models import qg_model as TQ
+    from mmqg_tpu_torch.pipeline import QGPipeline
+
+    mc, params, state = tiny_model(config, n_vocab=N_WORDS, seed=4)
+    params = peaked(params, end_twin=5)
+    vocab = {w: i for i, w in enumerate(WORDS)}
+    i2w = {str(i): w for i, w in enumerate(WORDS)}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JDEC, "decode_batch",
+                   functools.partial(JDEC.decode_batch, dtype=jnp.float32))
+        jax_pipe = JaxPipeline(config, mc, params, state, vocab, i2w)
+        port = QGPipeline(config, TQ.ModelConfig(**mc._asdict()),
+                          params, state, vocab, i2w, device="cpu",
+                          dtype=torch.float32)
+        yield jax_pipe, port
+
+
+def caption(i: int) -> str:
+    return " ".join(WORDS[3 + (i * 7 + k * 5) % (N_WORDS - 3)]
+                    for k in range(3 + i % 4))
+
+
+def write_srt(path, seconds: int, every: int = 1):
+    blocks = [f"{i + 1}\n00:00:{i * every:02d},000 --> "
+              f"00:00:{(i + 1) * every:02d},000\n{caption(i).upper()}\n"
+              for i in range(seconds // every)]
+    path.write_text("\n".join(blocks))
+    return path
+
+
+def write_stereo_wav(path, seconds: float, rate: int = 8000, seed: int = 0):
+    """A stereo tone plus noise at another rate than the model's, so that
+    loading it resamples and mixes down."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    tone = 0.3 * np.sin(2 * np.pi * (200 + 50 * seed) * t)
+    pcm = np.stack([tone + 0.05 * rng.randn(len(t)),
+                    0.5 * tone + 0.05 * rng.randn(len(t))], axis=1)
+    jwav.write_wav(path, pcm.astype(np.float32), rate)
+    return path
