@@ -64,8 +64,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             generate() with the static scales (quantize_s8 once: the later
             quantizes are the convs' epilogues)
 14. video   lecture mp4s in, questions out, on the flagship (bf16, int8
-            tower): 16 mp4s of 30-120 s at 320 x 240, 24 fps, written by
-            cv2, with subtitles and staged 44.1 kHz stereo wavs, 20 spans
+            tower): 8 mp4s of 30-120 s at 320 x 240, 24 fps, written by
+            cv2, with subtitles and staged 44.1 kHz stereo wavs, 10 spans
             of 4-30 s. One generate_from_video, generate_from_videos per
             video (4 prep workers) and coalesced (up to 32 rows a batch), and
             a sequential baseline (every prep, then one generate a video):
@@ -77,13 +77,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             the same questions, greedy and sampled (bf16: printed). Prints
             host prep ms by part, videos/s and questions/s per path, the
             completion times' p50 and p90 and the batches
-15. serve   the JSONL daemon: serve() in process on 64 requests (staged and
+15. serve   the JSONL daemon: serve() in process on 32 requests (staged and
             raw-video, one malformed line), greedy, max_batch 32, linger 25
             ms: every id answered once, the launches per dispatched batch as
             in 14; then `python -m mmqg_tpu_torch.serve` as a process with
             no --device, on a flagship checkpoint written by the port, fed
-            32 requests on stdin: exit 0, one answer per id, `ready` on
+            16 requests on stdin: exit 0, one answer per id, `ready` on
             stderr
+16. configs the configurations beside the flagship, at its full width
+            (R(2+1)D-18 at torchvision's widths, 512-d features), random
+            weights, the same 32 requests, bf16: trimodal + attention +
+            R(2+1)D (greedy and beam: K1 3x, K2 21x tiled on B or B * K
+            rows, the int8 conv 5x per generate(); encode and decode wall,
+            the trunk's device time, the encode's peak memory),
+            text_video + non-attention + conv-LSTM (greedy, sampling, beam:
+            K1 4x, K2 none) and text + attention (greedy: K1 3x, K2 21x, no
+            int8); 320 x 240 frames through encode with R(2+1)D (the resize
+            on the card, timed, against the CPU's); a train step of
+            R(2+1)D at B=16 with remat_video off and on (the same loss,
+            gradients within a band, step wall and peak memory; K4 3x each
+            way), a non-attention step at B=32 (K4 4x each way), and
+            gradient accumulation (two half batches vs the whole, f32); each
+            of the three card vs CPU in f32 on 4 requests: identical
+            questions for every strategy run
 
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
@@ -103,6 +119,7 @@ any result. It imports nothing of JAX and nothing of the JAX package
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import re
@@ -143,7 +160,8 @@ from mmqg_tpu_torch.ops.lstm_train import (bwd_route, lstm_layer_train,
 from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_leaves,
                                   tree_map)
 from mmqg_tpu_torch.pipeline import QGPipeline, row_seed_array
-from mmqg_tpu_torch.train import Trainer, batch_arrays, to_device
+from mmqg_tpu_torch.train import (Trainer, TrainState, batch_arrays,
+                                  make_train_step, to_device)
 from mmqg_tpu_torch.utils import prng
 
 SEED = 0
@@ -568,10 +586,15 @@ def flagship():
     frames, VGGish) with random weights from SEED, and a synthetic vocab."""
     mc = ModelConfig(n_vocab=N_VOCAB)
     params, state = init_params(mc, SEED)
+    return (mc, params, state) + synthetic_vocab()
+
+
+def synthetic_vocab():
+    """(vocab, index_to_word) of N_VOCAB words w3, w4, ..."""
     words = ["<pad>", "<start>", "<end>"] + [f"w{i}" for i in
                                              range(3, N_VOCAB)]
     vocab = {w: i for i, w in enumerate(words)}
-    return mc, params, state, vocab, {str(i): w for i, w in enumerate(words)}
+    return vocab, {str(i): w for i, w in enumerate(words)}
 
 
 def requests(mc, n: int, seed: int):
@@ -2085,12 +2108,14 @@ def phase_calibrate(card: str, serving) -> None:
 
 
 # ------------------------------------------------------- raw video, serve
-# 16 lecture mp4s at the JAX package's joint fixture size
+# 8 lecture mp4s at the JAX package's joint fixture size
 # (scripts/bench_joint_video.py:99-101), 30-120 s each, with the reference
 # corpus's span layout (bench_joint_video.py:142-150: 1.22 questions a
-# video, spans p50 8 s and p90 19 s): 20 questions of 4-30 s
-N_VIDEOS = 16
-N_QUESTIONS = 20
+# video, spans p50 8 s and p90 19 s): 10 questions of 4-30 s. (16 mp4s and
+# 20 questions, and 64 + 32 daemon requests, until the configurations'
+# phase took the time they saved.)
+N_VIDEOS = 8
+N_QUESTIONS = 10
 VIDEO_SIZE = (320, 240)
 VIDEO_FPS = 24
 VIDEO_SECONDS = (30, 120)
@@ -2101,8 +2126,8 @@ WAV_RATE = 44100      # staged wavs: stereo, resampled and mixed down on load
 PREP_WORKERS = 4
 MAX_COALESCE = 32
 N_F32_VIDEOS = 4
-N_SERVE = 64          # in-process daemon requests, one of them malformed
-N_SERVE_PROCESS = 32  # requests to `python -m mmqg_tpu_torch.serve`
+N_SERVE = 32          # in-process daemon requests, one of them malformed
+N_SERVE_PROCESS = 16  # requests to `python -m mmqg_tpu_torch.serve`
 SERVE_LINGER_MS = 25.0
 
 
@@ -2558,10 +2583,10 @@ def write_checkpoint(root, model, **config_kw):
 
 
 def phase_serve(card: str, model, video, root) -> None:
-    """The JSONL daemon on the flagship: serve() in process on 64
+    """The JSONL daemon on the flagship: serve() in process on N_SERVE
     requests (staged and raw-video, one malformed), its launches per
     dispatched batch; then ``python -m mmqg_tpu_torch.serve`` as a process,
-    with no --device, on 32 requests."""
+    with no --device, on N_SERVE_PROCESS requests."""
     from mmqg_tpu_torch import serve as S
 
     pipe, sizes, starts = video["pipe"], video["sizes"], video["starts"]
@@ -2632,32 +2657,530 @@ def phase_serve(card: str, model, video, root) -> None:
     check_answers("serve process", responses, ids, 0)
 
 
+# ------------------------------------------------------------ configs
+
+# the configurations of phase 16 beside the flagship: (mode, decoder,
+# video_encoder) at the flagship's widths, R(2+1)D-18 at torchvision's
+# published widths with 512-d trunk features (video_hidden_dim 512: no head)
+CONFIG_CASES = (("trimodal", "attn", "resnet"),
+                ("text_video", "non_attn", "conv_lstm"),
+                ("text", "attn", "conv_lstm"))
+CONFIG_STRATEGIES = {CONFIG_CASES[0]: ("greedy", "beam"),
+                     CONFIG_CASES[1]: ("greedy", "sampling", "beam"),
+                     CONFIG_CASES[2]: ("greedy",)}
+RESNET_TRAIN_B = 16
+NON_ATTN_TRAIN_B = 32
+# the frames cap of the card vs CPU check of R(2+1)D (the CPU runs the
+# trunk at this many frames a clip, both devices pinned to it)
+CPU_RESNET_FRAMES = 16
+RESIZE_REQUESTS = 8
+RESIZE_FRAME = (240, 320)   # H x W: 320 x 240 frames, resized to 149 x 112
+# remat on vs off, bf16 on the card: the worst leaf's |on - off| / max|off|
+# may not exceed twice the same step's run-to-run spread (cuDNN's backward
+# algorithms and the embedding backward accumulate with atomics), and at
+# least this; a dropped term or a second batchnorm update is O(1)
+REMAT_BAND = 5e-2
+# gradient accumulation, f32: two accumulated half batches against the
+# whole batch, every leaf within ACCUM_RTOL of the largest gradient and the
+# whole gradient within ACCUM_NORM_TOL in norm. A leaf's own max is no
+# scale here: a small leaf (the embedding rows, the text attention) is a
+# sum of cancelling terms whose f32 order the split changes (1e-3 of its
+# max on the CPU at hidden 64, where |d| / |g| over all leaves is 2.2e-7)
+ACCUM_RTOL, ACCUM_NORM_TOL = 1e-4, 1e-5
+
+
+def config_name(case) -> str:
+    mode, dec, venc = case
+    return f"{mode}-{dec}" + ("" if mode == "text" else f"-{venc}")
+
+
+@functools.lru_cache(maxsize=None)
+def config_model(case):
+    """(mc, params, state, vocab, i2w) of a configuration at the
+    flagship's widths, random weights from SEED (made once: R(2+1)D-18's
+    31M weights take seconds of the host's random draws)."""
+    mode, dec, venc = case
+    mc = ModelConfig(n_vocab=N_VOCAB, mode=mode, decoder=dec,
+                     video_encoder=venc)
+    params, state = init_params(mc, SEED)
+    return (mc, params, state) + synthetic_vocab()
+
+
+def config_want(mc) -> dict:
+    """The launches of one greedy or beam generate() of ``mc``: K1 once a
+    text layer and once for the conv-LSTM's video layer, K2 once a decode
+    step with the attention decoder, the int8 tower in trimodal."""
+    video_lstm = mc.mode != "text" and mc.video_encoder == "conv_lstm"
+    int8 = len(V.POOLS) if mc.mode == "trimodal" else 0
+    return dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + int(video_lstm),
+                trimodal_attention=(mc.target_steps - 1
+                                    if mc.decoder == "attn" else 0),
+                vggish_conv_int8=int8, quantize_s8=int8)
+
+
+def check_config_launches(what: str, mc, launches: dict) -> None:
+    want = config_want(mc)
+    log(f"{what}: launched {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want}")
+    if want["lstm_seq"]:
+        check_routes(f"{what}: K1", lstm_seq.routes, want["lstm_seq"])
+    check_only_route(f"{what}: K2", trimodal_attention.routes, "tiled",
+                     want["trimodal_attention"])
+    check_only_route(f"{what}: int8 conv", V.conv3x3_relu_int8.routes,
+                     "wgmma", want["vggish_conv_int8"])
+
+
+def _peak_mb(fn):
+    """(result, peak device memory in MB allocated while ``fn()`` ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _config_serving(card: str, case, req) -> dict:
+    """One configuration's serving on the card: each strategy's launches
+    per generate() (K2's rows for beam), encode and decode wall; for
+    R(2+1)D the trunk's device time and the encode's peak memory."""
+    model = config_model(case)
+    mc, params, state, vocab, i2w = model
+    name = config_name(case)
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cuda",
+                      dtype=torch.bfloat16)
+    pipe.generate(*req)                      # warm-up: cuDNN plans, caches
+    torch.cuda.synchronize()
+    launches = {}
+    real = decoder_module.trimodal_attention
+    for strategy in CONFIG_STRATEGIES[case]:
+        k2_rows = []
+
+        def counting(w_t, b, q, *args, **kw):
+            k2_rows.append(q.shape[0])
+            return real(w_t, b, q, *args, **kw)
+
+        if strategy == "beam":
+            pipe.generate(*req, strategy="beam", beam_size=BEAM_SIZE)
+        _reset_launches()
+        with mock.patch.object(decoder_module, "trimodal_attention",
+                               counting):
+            questions = pipe.generate(*req, strategy=strategy,
+                                      beam_size=BEAM_SIZE, seed=STRATEGY_SEED)
+            torch.cuda.synchronize()
+        launches[strategy] = _launches()
+        check_config_launches(f"configs: {name} {strategy} generate() of "
+                              f"{N_REQUESTS}", mc, launches[strategy])
+        rows = N_REQUESTS * (BEAM_SIZE if strategy == "beam" else 1)
+        if k2_rows and set(k2_rows) != {rows}:
+            raise AssertionError(f"{name} {strategy}: K2 rows {k2_rows}")
+        if len(questions) != N_REQUESTS or not all(
+                isinstance(q, str) for q in questions):
+            raise AssertionError(f"{name}: not one question a request")
+    qps, wall, enc, dec, caps = _time_serving(pipe, req)
+    out = {"launches": launches, "encode_ms": enc, "decode_ms": dec}
+    log(f"configs: {name} greedy batch {N_REQUESTS} bf16: {qps:.1f} "
+        f"questions/s ({wall:.1f} ms generate()); encode {enc:.2f} ms, "
+        f"decode {dec:.2f} ms (medians of 3; caps {caps}) [{card}]")
+    if mc.video_encoder == "resnet" and mc.mode != "text":
+        host = pipe._pack(*req)
+        batch = pipe._to_device(host)
+        fcap = caps["frames_cap"]
+        prepared = frontends.prepare_frames(
+            batch["frames"][:, :fcap], size=mc.frame_size,
+            mean=mc.vid_mean, std=mc.vid_std)
+        with torch.no_grad():
+            wall_ms, busy, prof = _device_busy_ms(
+                lambda: pipe.model.video_enc.temporal(prepared,
+                                                      dtype=torch.bfloat16))
+        if busy is not None:
+            top = prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=10)
+            for line in top.splitlines():
+                log(f"  {line}")
+        _conv_layouts(card, pipe.model.video_enc, prepared.shape[:2])
+        with torch.no_grad():
+            _, peak = _peak_mb(lambda: DEC.encode(
+                pipe.model, mc, batch, dtype=torch.bfloat16, **caps))
+        out.update(resnet_ms=busy, resnet_wall_ms=wall_ms, encode_peak_mb=peak)
+        log(f"configs: {name} R(2+1)D-18 trunk on {tuple(prepared.shape)} "
+            f"bf16: device "
+            + ("not measured" if busy is None else f"{busy:.2f} ms")
+            + f" (wall {wall_ms:.2f} ms, one profiled call); encode peak "
+            f"memory {peak:.0f} MB (torch.cuda.max_memory_allocated) [{card}]")
+    out["model"], out["pipe"] = model, pipe
+    return out
+
+
+def _conv_layouts(card: str, venc, bt) -> None:
+    """Stage 1's first spatial conv (64 -> 144, 1 x 3 x 3) at the trunk's
+    batch, bf16, in the port's channels-last layout and in contiguous
+    NCDHW (CUDA events; a yardstick for the trunk's layout)."""
+    conv = venc.stages[0][0].conv1.spatial
+    w = conv.w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+    x = torch.randn((bt[0], bt[1], 56, 56, 64), device="cuda",
+                    dtype=torch.bfloat16)
+    cl = x.permute(0, 4, 1, 2, 3)
+    wl = w.contiguous(memory_format=torch.channels_last_3d)
+    nc = cl.contiguous()
+    wc = w.contiguous()
+    run = {"channels_last_3d": lambda: torch.nn.functional.conv3d(
+               cl, wl, padding=(0, 1, 1)),
+           "ncdhw": lambda: torch.nn.functional.conv3d(nc, wc,
+                                                        padding=(0, 1, 1))}
+    with torch.no_grad():
+        times = in_turns(run, iters=3)
+    flops = 2 * x.numel() * 144 * 9
+    log(f"configs: stage 1 spatial conv {tuple(x.shape)} -> 144, bf16, "
+        f"cuDNN by layout: " + fmt_turns(times) + f"; {flops / 1e12:.2f} "
+        f"TFLOP, {flops / 989e12 * 1e3:.2f} ms at the bf16 peak [{card}]")
+
+
+def _resize_path(card: str, serving: dict) -> dict:
+    """320 x 240 uint8 frames through qg_model.encode with R(2+1)D: the
+    resize (frontends.prepare_frames) on the card, its time and the
+    encode's, the card's resize against the CPU's."""
+    pipe = serving["pipe"]
+    mc = pipe.mc
+    rng = np.random.RandomState(SEED + 9)
+    H, W = RESIZE_FRAME
+    req = requests(mc, RESIZE_REQUESTS, SEED + 2)
+    lens = [min(len(f), mc.av_max_length) for f in req[1]]
+    T = max(lens)
+    frames = torch.from_numpy(rng.randint(0, 256, (RESIZE_REQUESTS, T, H, W,
+                                                   3), np.uint8)).cuda()
+    host = pipe._pack(req[0], None, req[2])
+    batch = pipe._to_device(host)
+    batch["frames"] = frames
+    batch["frames_len"] = torch.tensor(lens, dtype=torch.int32,
+                                       device="cuda")
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, np.asarray(lens)))
+    prepared = frontends.prepare_frames(frames, size=mc.frame_size,
+                                        mean=mc.vid_mean, std=mc.vid_std)
+    if tuple(prepared.shape[2:4]) != (112, 149):
+        raise AssertionError(f"resized to {tuple(prepared.shape)}")
+    resize_ms = cuda_ms(lambda: frontends.prepare_frames(
+        frames, size=mc.frame_size, mean=mc.vid_mean, std=mc.vid_std),
+        iters=5, warmup=1)
+    cpu = frontends.prepare_frames(frames[:1, :2].cpu(), size=mc.frame_size,
+                                   mean=mc.vid_mean, std=mc.vid_std)
+    err = max_abs(prepared[:1, :2].cpu(), cpu)
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: DEC.encode(pipe.model, mc, batch,
+                                            dtype=torch.bfloat16, **caps),
+                         iters=3, warmup=1)
+        mem, _ = DEC.encode(pipe.model, mc, batch, dtype=torch.bfloat16,
+                            **caps)
+    want_len = np.maximum(-(-np.minimum(lens, caps["frames_cap"]) // 8), 1)
+    ok = (bool(torch.isfinite(mem.enc_video).all())
+          and np.array_equal(mem.video_len.cpu().numpy(), want_len)
+          and tuple(mem.enc_video.shape) == (RESIZE_REQUESTS,
+                                             mc.av_max_length, 512))
+    log(f"configs: resize path, {RESIZE_REQUESTS} requests of {W} x {H} "
+        f"uint8 frames ({T} steps) -> {tuple(prepared.shape)} f32: "
+        f"prepare_frames {resize_ms:.2f} ms, encode (R(2+1)D, bf16, the "
+        f"resize included) {enc_ms:.2f} ms (CUDA events); card vs cpu "
+        f"resize max|d| {err:.2e} (tol 1e-5); memories ok={ok} [{card}]")
+    if not ok or not err <= 1e-5:
+        raise AssertionError("resize path failed")
+    return {"resize_ms": resize_ms, "encode_ms": enc_ms}
+
+
+def _grads(model, mc, batch, caps, dtype):
+    """(loss, every gradient leaf) of one loss_fn backward."""
+    params = qg_model.param_tree(model)
+    for p in tree_leaves(params):
+        p.grad = None
+    loss, _ = qg_model.loss_fn(model, mc, batch, dtype=dtype, **caps)
+    loss.backward()
+    grads = [p.grad.detach().clone() if p.grad is not None
+             else torch.zeros_like(p) for p in tree_leaves(params)]
+    for p in tree_leaves(params):
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _worst_rel(a, b) -> float:
+    """The worst leaf's max |a - b| over max |b|; a leaf whose b is zero
+    (the attention over a length-1 zero memory has no gradient) counts
+    against the largest leaf's max instead."""
+    top = max(float(y.float().abs().max()) for y in b)
+    return max(float((x.float() - y.float()).abs().max())
+               / max(float(y.float().abs().max()), 1e-6 * top)
+               for x, y in zip(a, b))
+
+
+def _config_training(card: str, model) -> dict:
+    """R(2+1)D training at B=16 with remat_video off and on (loss,
+    gradients, step wall, peak memory, K4's launches), one
+    non-attention step at B=32, and gradient accumulation in f32."""
+    mc, params, _, _, i2w = model
+    B = RESNET_TRAIN_B
+    ds = SyntheticCorpus(mc, i2w, 1, B, SEED + 4)
+    trainer = Trainer(train_config(B), mc, params["embedding"]["table"], ds,
+                      ds, device="cuda", log_fn=log)
+    host = batch_arrays(ds.batch(0))
+    caps = trainer.caps_for(host)
+    batch = to_device(host, "cuda")
+    ts = trainer.train_state
+    out = {}
+    steps = {r: make_train_step(mc._replace(remat_video=r),
+                                trainer.optimizer, dtype=torch.bfloat16)
+             for r in (False, True)}
+    for remat in (False, True, False, True):
+        steps[remat](ts, batch, trainer.generator, **caps)   # warm-up
+    for remat in (False, True):
+        _reset_launches()
+        t0 = time.perf_counter()
+        (_, metrics), peak = _peak_mb(lambda: steps[remat](
+            ts, batch, trainer.generator, **caps))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches()
+        want = dict(ZERO_LAUNCHES, lstm_train_fwd=mc.text_layers,
+                    lstm_train_bwd=mc.text_layers)
+        log(f"configs: {config_name(CONFIG_CASES[0])} train step B={B} "
+            f"bf16 remat_video={remat}: {step_ms:.1f} ms, peak memory "
+            f"{peak:.0f} MB, loss {float(metrics['loss']):.4f}, launched "
+            f"{launches} (want {want}) [{card}]")
+        if launches != want or not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"remat={remat}: launches {launches}")
+        check_routes("configs: K4 forward", lstm_layer_train.fwd_routes,
+                     want["lstm_train_fwd"])
+        check_routes("configs: K4 backward", lstm_layer_train.bwd_routes,
+                     want["lstm_train_bwd"])
+        out[f"step_ms_remat_{remat}"] = step_ms
+        out[f"peak_mb_remat_{remat}"] = peak
+        out["launches"] = launches
+    # loss and gradients, no update: off, off again (the spread), on
+    runs = {}
+    for key, remat in (("off", False), ("off2", False), ("on", True)):
+        runs[key] = _grads(ts.model, mc._replace(remat_video=remat), batch,
+                           caps, torch.bfloat16)
+    spread = _worst_rel(runs["off2"][1], runs["off"][1])
+    delta = _worst_rel(runs["on"][1], runs["off"][1])
+    band = max(2 * spread, REMAT_BAND)
+    log(f"configs: remat_video on vs off (bf16, B={B}): loss {runs['on'][0]!r}"
+        f" vs {runs['off'][0]!r}; worst gradient leaf |on - off| / max "
+        f"{delta:.2e}, off vs off {spread:.2e} (band {band:.1e})")
+    if (abs(runs["on"][0] - runs["off"][0]) > 1e-6 * abs(runs["off"][0])
+            or not delta <= band):
+        raise AssertionError("remat_video changes the loss or gradients")
+
+    # one non-attention step at B=32 (text_video, conv-LSTM)
+    na = config_model(CONFIG_CASES[1])
+    nmc = na[0]
+    nds = SyntheticCorpus(nmc, i2w, 1, NON_ATTN_TRAIN_B, SEED + 6)
+    ntr = Trainer(train_config(NON_ATTN_TRAIN_B), nmc,
+                  na[1]["embedding"]["table"], nds, nds, device="cuda",
+                  log_fn=log)
+    nhost = batch_arrays(nds.batch(0))
+    nbatch = to_device(nhost, "cuda")
+    ncaps = ntr.caps_for(nhost)
+    ntr.train_step(ntr.train_state, nbatch, ntr.generator, **ncaps)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = ntr.train_step(ntr.train_state, nbatch, ntr.generator,
+                                **ncaps)
+    torch.cuda.synchronize()
+    nms = (time.perf_counter() - t0) * 1e3
+    nl = _launches()
+    want = dict(ZERO_LAUNCHES, lstm_train_fwd=nmc.text_layers + 1,
+                lstm_train_bwd=nmc.text_layers + 1)
+    log(f"configs: {config_name(CONFIG_CASES[1])} train step B="
+        f"{NON_ATTN_TRAIN_B} bf16: {nms:.1f} ms, loss "
+        f"{float(metrics['loss']):.4f}, launched {nl} (want {want}) [{card}]")
+    if nl != want or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"non-attention step launches {nl}")
+    check_routes("configs: K4 forward", lstm_layer_train.fwd_routes,
+                 want["lstm_train_fwd"])
+    check_routes("configs: K4 backward", lstm_layer_train.bwd_routes,
+                 want["lstm_train_bwd"])
+    out["non_attn_launches"] = nl
+    out["non_attn_step_ms"] = nms
+    del trainer, ntr, ts
+    torch.cuda.empty_cache()
+
+    # gradient accumulation (f32, mode text: no batchnorm, whose statistics
+    # would be per microbatch): two accumulated half batches vs the whole
+    tmc, tparams, tstate, _, _ = config_model(CONFIG_CASES[2])
+    tds = SyntheticCorpus(tmc, i2w, 1, B, SEED + 7)
+    tbatch = to_device(batch_arrays(tds.batch(0)), "cuda")
+    cfg = train_config(B, optim="sgd", lr=1.0)
+    grads = {}
+    for accum in (1, 2):
+        model = params_from_numpy(tparams, tstate, "cuda", trainable=True)
+        before = [p.detach().clone() for p in
+                  tree_leaves(qg_model.param_tree(model))]
+        opt = make_optimizer(cfg)
+        state = TrainState(model, opt.init(qg_model.param_tree(model)))
+        make_train_step(tmc, opt, dtype=torch.float32, accum_steps=accum)(
+            state, tbatch, None)
+        grads[accum] = [b - p.detach() for b, p in zip(
+            before, tree_leaves(qg_model.param_tree(model)))]
+    names = list(_leaf_names(qg_model.param_tree(model)))
+    top = max(float(g.abs().max()) for g in grads[1])
+    per_leaf = [(float((a - b).abs().max()), float(b.abs().max()), n)
+                for a, b, n in zip(grads[2], grads[1], names)]
+    worst = max(d for d, _, _ in per_leaf) / top
+    rel = max(per_leaf, key=lambda t: t[0] / max(t[1], 1e-30))
+    norm = (sum(float(((a - b) ** 2).sum()) for a, b in zip(grads[2],
+                                                           grads[1]))
+            / sum(float((b ** 2).sum()) for b in grads[1])) ** 0.5
+    log(f"configs: gradient accumulation ({config_name(CONFIG_CASES[2])}, "
+        f"f32, B={B}, SGD lr 1): accum_steps=2 vs 1, worst |d| {worst:.2e} "
+        f"of the largest gradient (tol {ACCUM_RTOL:.0e}), |d| / |g| over "
+        f"all leaves {norm:.2e} (tol {ACCUM_NORM_TOL:.0e}); the worst leaf "
+        f"by its own max: {rel[2]} {rel[0] / max(rel[1], 1e-30):.2e} of "
+        f"{rel[1]:.2e} [{card}]")
+    if not (worst <= ACCUM_RTOL and norm <= ACCUM_NORM_TOL):
+        raise AssertionError("accumulated gradients differ")
+    out["accum_worst"] = worst
+    return out
+
+
+def _config_card_vs_cpu(case) -> None:
+    """One configuration in f32 on 4 requests on the card and on the CPU:
+    identical questions for every strategy of the phase (R(2+1)D with both
+    devices pinned to CPU_RESNET_FRAMES frames)."""
+    mc, params, state, vocab, i2w = config_model(case)
+    req = tuple(r[:4] for r in requests(mc, N_REQUESTS, SEED + 2))
+    pin = ({"frames_cap": CPU_RESNET_FRAMES}
+           if mc.video_encoder == "resnet" and mc.mode != "text" else {})
+    out = {}
+    for device in ("cuda", "cpu"):
+        pipe = QGPipeline(None, mc, params, state, vocab, i2w, device=device,
+                          dtype=torch.float32)
+        caps = dict(request_caps(pipe, req), **pin)
+        host = pipe._pack(*req, **caps)
+        mem, st = DEC.encode(pipe.model, mc, pipe._to_device(host),
+                             dtype=torch.float32, **caps)
+        seeds = torch.from_numpy(row_seed_array(
+            host["context_ids"].shape[0], 4, row_ids(4)))
+        max_len = mc.target_steps - 1
+        out[device] = {}
+        for s in CONFIG_STRATEGIES[case]:
+            if s == "beam":
+                toks = DEC.beam_from_memories(
+                    pipe.model, mem, st, max_len=max_len,
+                    beam_size=BEAM_SIZE, dtype=torch.float32)
+            else:
+                toks = DEC.decode_from_memories(
+                    pipe.model, mem, st,
+                    prng.prng_key(STRATEGY_SEED, pipe.device),
+                    strategy=s, max_len=max_len, dtype=torch.float32,
+                    row_seeds=seeds)
+            out[device][s] = toks.cpu()
+        if device == "cuda" and pin:
+            # R(2+1)D's memory depends on the frames cap (a defect of the
+            # reference, ROADMAP queue 3): a row alone is held to its row
+            # in the batch at the batch's caps
+            batch = pipe.generate_async(*req, **caps)()
+            alone = [pipe.generate_async(*(r[i:i + 1] for r in req),
+                                         **caps)()[0] for i in range(4)]
+            log(f"configs: {config_name(case)} f32 on the card, each of 4 "
+                f"rows alone at the batch's caps {caps}: "
+                f"{sum(a == b for a, b in zip(alone, batch))} of 4 questions"
+                f" equal to the batch's")
+            if alone != batch:
+                raise AssertionError("a row alone differs from the batch")
+        del pipe
+    same = {s: torch.equal(out["cuda"][s], out["cpu"][s])
+            for s in out["cuda"]}
+    log(f"configs: card vs cpu ({config_name(case)}, f32, 4 requests, one "
+        "encode a device"
+        + (f", R(2+1)D on {CPU_RESNET_FRAMES} frames a clip on both" if pin
+           else "") + f"): tokens identical {same}")
+    if not all(same.values()):
+        raise AssertionError(f"card and CPU disagree: {same}")
+
+
+def phase_configs(card: str) -> dict:
+    """The configurations beside the flagship at full width: serving of
+    trimodal + attention + R(2+1)D (greedy, beam), text_video +
+    non-attention + conv-LSTM (greedy, sampling, beam) and text +
+    attention (greedy) with their launches; the resize path; R(2+1)D
+    training with remat_video off and on, a non-attention step and
+    gradient accumulation; each configuration card vs CPU in f32."""
+    req = requests(ModelConfig(n_vocab=N_VOCAB), N_REQUESTS, SEED + 2)
+    serving = {}
+    for case in CONFIG_CASES:
+        serving[case] = _config_serving(card, case, req)
+    resnet = serving[CONFIG_CASES[0]]
+    resize = _resize_path(card, resnet)
+    for s in serving.values():      # free the pipelines' device memory
+        del s["pipe"]
+    torch.cuda.empty_cache()
+    train = _config_training(card, resnet["model"])
+    for case in CONFIG_CASES:
+        _config_card_vs_cpu(case)
+    return {"serving": {config_name(c): s for c, s in serving.items()},
+            "resize": resize, "train": train}
+
+
+class Clock:
+    """Wall seconds by phase, printed as each ends and summed at the end."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.phases = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.phases[name] = now - self.last
+        self.last = now
+        log(f"phase {name}: {self.phases[name]:.1f} s")
+
+
 def main() -> None:
+    clock = Clock()
     dev = phase_device()
     phase_build()
+    clock.lap("device+build")
     k1 = phase_k1(dev["card"])
     k2 = phase_k2(dev["card"])
     k4 = phase_k4(dev["card"])
+    clock.lap("K1+K2+K4")
     model = flagship()
     launches = phase_main(dev["card"], model)
     phase_card_vs_cpu(model)
+    clock.lap("main+card/cpu")
     strategies = phase_strategies(dev["card"], model)
+    clock.lap("strategies")
     train_launches = phase_train(dev["card"], model)
     phase_train_card_vs_cpu(model)
+    clock.lap("train+train card/cpu")
     serving = he_serving(model)
     k3 = phase_k3(dev["card"], serving)
     int8 = phase_int8(dev["card"], serving)
     phase_calibrate(dev["card"], serving)
+    clock.lap("K3+int8+calibrate")
     with tempfile.TemporaryDirectory(prefix="mmqg_smoke_") as root:
         t0 = time.perf_counter()
         jobs, durations = make_lectures(root, alpha_vocab(N_VOCAB)[1])
         log(f"video: fixtures written in {time.perf_counter() - t0:.1f} s")
         video = phase_video(dev["card"], model, jobs, durations)
         phase_serve(dev["card"], model, video, root)
+    clock.lap("video+serve")
+    configs = phase_configs(dev["card"])
+    clock.lap("configs")
+    log(f"phases: {time.perf_counter() - clock.t0:.1f} s in all")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu")]
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
+    by_config = {name: c["launches"]["greedy"]
+                 for name, c in configs["serving"].items()}
+    trained = {config_name(CONFIG_CASES[0]): configs["train"]["launches"],
+               config_name(CONFIG_CASES[1]):
+                   configs["train"]["non_attn_launches"]}
+
+    def per_config(kernel: str, runs=by_config) -> dict:
+        """A kernel's launches in one greedy generate() (one train step)
+        of each configuration of phase 16."""
+        return {name: counts[kernel] for name, counts in runs.items()}
+
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
          "design": "persistent cooperative sweep (Wh in shared memory, "
@@ -2665,25 +3188,32 @@ def main() -> None:
                    "GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
          "replaces": "mmqg_tpu/ops/lstm_pallas.py:100",
-         "launches": launches["lstm_seq"], **k1},
+         "launches": launches["lstm_seq"],
+         "launches_by_config": per_config("lstm_seq"), **k1},
         {"name": "trimodal_attention", "route": "cuda",
          "design": "blocks of 16 batch rows x 16 positions x 128 memory "
                    "columns, mma.sync bf16 scores, flash-decoding partials "
                    "merged by the last block of each tile (atomic counter)",
          "source": "mmqg_tpu_torch/csrc/trimodal_attention.cu",
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
-         "launches": launches["trimodal_attention"], **strategies, **k2},
+         "launches": launches["trimodal_attention"],
+         "launches_by_config": per_config("trimodal_attention"),
+         **strategies, **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
          "design": "K1's persistent sweep emitting h, c and gates + "
                    "mma.sync input GEMM",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:147",
-         "launches": train_launches["lstm_train_fwd"], **k4["fwd"]},
+         "launches": train_launches["lstm_train_fwd"],
+         "launches_by_config": per_config("lstm_train_fwd", trained),
+         **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
          "design": "persistent sweep + mma.sync GEMMs",
          "source": "mmqg_tpu_torch/csrc/lstm_train.cu",
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:209",
-         "launches": train_launches["lstm_train_bwd"], **k4["bwd"]},
+         "launches": train_launches["lstm_train_bwd"],
+         "launches_by_config": per_config("lstm_train_bwd", trained),
+         **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
          "design": "wgmma implicit GEMM, 3-stage cp.async ring",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
@@ -2694,13 +3224,16 @@ def main() -> None:
                    "next layer's int8 input",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/models/audio_encoder.py:157",
-         "launches": launches["vggish_conv_int8"], **int8["conv"]},
+         "launches": launches["vggish_conv_int8"],
+         "launches_by_config": per_config("vggish_conv_int8"),
+         **int8["conv"]},
         {"name": "quantize_s8", "route": "cuda",
          "design": "the int8 tower's activation quantize: one pass, 16 "
                    "values a thread (port-only: XLA ops in JAX)",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/models/audio_encoder.py:147",
-         "launches": launches["quantize_s8"], **int8["quant"]}]
+         "launches": launches["quantize_s8"],
+         "launches_by_config": per_config("quantize_s8"), **int8["quant"]}]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

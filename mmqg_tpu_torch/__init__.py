@@ -5,9 +5,12 @@ the JAX package, which stays the reference it is tested against. It keeps
 the JAX package's module layout and its parameter layouts, and imports
 neither ``jax`` nor anything of ``mmqg_tpu``: what it needs of the JAX
 package's JAX-free modules (``Config``, ``QGDataset``, BLEU, the
-pipelining helper) it keeps as its own copies. It runs the greedy serving
-path, with the int8 VGGish audio tower on the card as the JAX package
-serves off the CPU, and training:
+pipelining helper) it keeps as its own copies. It serves (every decode
+strategy, raw video, the daemon), evaluates and trains every configuration
+of the JAX package's model (modes text / text_video / trimodal, the
+attention or non-attention decoder, the conv-LSTM or R(2+1)D-18 video
+encoder), with the int8 VGGish audio tower on the card as the JAX package
+serves off the CPU:
 
     QGPipeline(...).generate(contexts, frames, audio, strategy="greedy")
     python -m mmqg_tpu_torch.train -c config.json [--device cpu]
@@ -23,8 +26,11 @@ Layout:
   metrics.py        BLEU suite (standard and reference-compat)
   data/             vocab ids, WAV reading, QGDataset batches
   utils/            pipelined host loops
-  compat/from_jax   JAX train-state pytree (numpy leaves) <-> modules
-  models/           layers, text/video/audio encoders, decoder, encode, loss
+  compat/           from_jax: JAX train-state pytree (numpy leaves) <->
+                    modules; from_torchvision: r2plus1d_18 weights
+  models/           layers, text/video (conv-LSTM, R(2+1)D)/audio encoders,
+                    the two decoders, the frame and audio frontends,
+                    encode, loss
   ops/lstm.py       K1: LSTM sequence, CUDA kernel + plain version
   ops/attention.py  K2: tri-modal attention, CUDA kernel + plain version
   ops/lstm_train.py K4: trainable LSTM layer, CUDA forward and backward

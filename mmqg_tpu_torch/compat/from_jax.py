@@ -11,9 +11,15 @@ as it is -- float32, bit for bit -- onto ``device``:
   params["video_enc"]["bns"][i] + model_state["video_enc"]["bns"][i]
                                                   scale, bias + mean, var, count
   params["video_enc"]["lstm"]["layers"][0]
+    or R(2+1)D-18 (``video_resnet.init``'s tree: stem_s, stem_t, stem_bn,
+    stem_bn2, stages[4][2], optional fc; its state the batchnorms')
   params["audio_enc"]["convs"][i], ["fc1"|"fc2"|"fc3"]   w (In, Out), b
   params["decoder"]["attn"]                       AttnParams (or its dict)
   params["decoder"]["lstm"], params["decoder"]["out"]
+
+A subtree the configuration has no use for is absent: ``video_enc`` in
+mode text, ``audio_enc`` outside trimodal, ``decoder["attn"]`` for the
+non-attention decoder. The model holds what the tree holds.
 
 :func:`train_state_to_numpy` goes the other way, for a checkpoint: the
 model's parameters and batchnorm state, the optimizer state (already in
@@ -31,7 +37,8 @@ import torch
 
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models.audio_encoder import AudioEncoder
-from mmqg_tpu_torch.models.decoder import Decoder
+from mmqg_tpu_torch.models import video_resnet
+from mmqg_tpu_torch.models.decoder import Decoder, NonAttnDecoder
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import QGModel
 from mmqg_tpu_torch.models.text_encoder import TextEncoder
@@ -42,8 +49,8 @@ from mmqg_tpu_torch.optim import tree_map
 
 def params_from_numpy(params: Dict[str, Any], model_state: Dict[str, Any],
                       device="cpu", *, trainable: bool = False) -> QGModel:
-    """Build the tri-modal attention model on ``device`` from JAX-layout
-    parameters (see the module docstring for the tree). Parameters
+    """Build the model on ``device`` from JAX-layout parameters of any
+    configuration (see the module docstring for the tree). Parameters
     require grad only when ``trainable``."""
     device = torch.device(device)
 
@@ -60,21 +67,34 @@ def params_from_numpy(params: Dict[str, Any], model_state: Dict[str, Any],
     def conv(p) -> L.Conv2d:
         return L.Conv2d(t(p["w"]), t(p["b"]))
 
-    vp, ap, dp = params["video_enc"], params["audio_enc"], params["decoder"]
-    bn_state = model_state["video_enc"]["bns"]
-    video = VideoEncoder(
-        [conv(c) for c in vp["convs"]],
-        [L.BatchNorm(t(bn["scale"]), t(bn["bias"]), t(s["mean"]), t(s["var"]),
-                     t(s["count"]) if "count" in s else None)
-         for bn, s in zip(vp["bns"], bn_state)],
-        lstm(vp["lstm"]))
-    audio = AudioEncoder([conv(c) for c in ap["convs"]], dense(ap["fc1"]),
-                         dense(ap["fc2"]), dense(ap["fc3"]))
-    attn = dp["attn"]
-    attn = attn._asdict() if hasattr(attn, "_asdict") else attn
-    decoder = Decoder(
-        TriModalAttention(*(t(attn[k]) for k in qg_model.ATTN_FIELDS)),
-        lstm(dp["lstm"]), dense(dp["out"]))
+    def bn(p, st) -> L.BatchNorm:
+        return L.BatchNorm(t(p["scale"]), t(p["bias"]), t(st["mean"]),
+                           t(st["var"]),
+                           t(st["count"]) if "count" in st else None)
+
+    video = audio = None
+    vp = params.get("video_enc")
+    if vp is not None and "stem_s" in vp:
+        video = video_resnet.build(vp, model_state["video_enc"], t)
+    elif vp is not None:
+        video = VideoEncoder(
+            [conv(c) for c in vp["convs"]],
+            [bn(p, st) for p, st in zip(vp["bns"],
+                                        model_state["video_enc"]["bns"])],
+            lstm(vp["lstm"]))
+    ap = params.get("audio_enc")
+    if ap is not None:
+        audio = AudioEncoder([conv(c) for c in ap["convs"]], dense(ap["fc1"]),
+                             dense(ap["fc2"]), dense(ap["fc3"]))
+    dp = params["decoder"]
+    if "attn" in dp:
+        attn = dp["attn"]
+        attn = attn._asdict() if hasattr(attn, "_asdict") else attn
+        decoder = Decoder(
+            TriModalAttention(*(t(attn[k]) for k in qg_model.ATTN_FIELDS)),
+            lstm(dp["lstm"]), dense(dp["out"]))
+    else:
+        decoder = NonAttnDecoder(lstm(dp["lstm"]), dense(dp["out"]))
     model = QGModel(t(params["embedding"]["table"]),
                     TextEncoder(lstm(params["text_enc"]["lstm"])), video,
                     audio, decoder)

@@ -12,6 +12,11 @@ reaches mass p). Draws use ``utils.prng``, JAX's threefry streams bit for
 bit, so a sampled question equals the JAX package's at the same key and
 row seeds. ``beam_decode_batch`` is JAX's length-normalised beam search,
 ``sequence_logprob`` its rescoring API.
+
+Every strategy runs either decoder of the model (``models.decoder``): the
+attention decoder's step inputs are the memories in the compute dtype, the
+non-attention decoder's the AV vector of the float32 memories, computed
+once a decode (for beam search from the memories tiled to B * K rows).
 """
 
 from __future__ import annotations
@@ -62,12 +67,15 @@ def frames_bucket(mc: qg_model.ModelConfig, frames_len) -> int:
 
 def _caps(mc: qg_model.ModelConfig, batch: Dict[str, Tensor],
           audio_cap: Optional[int], frames_cap: Optional[int]):
-    """Resolve the (audio, frames) caps. Computing them from device tensors
-    waits for the device; callers that know them pass them."""
+    """Resolve the (audio, frames) caps of the modalities the mode encodes
+    (None for the others). Computing them from device tensors waits for
+    the device; callers that know them pass them."""
     cap = (audio_cap if audio_cap is not None
-           else audio_bucket(mc, batch["audio_len"].cpu().numpy()))
+           else audio_bucket(mc, batch["audio_len"].cpu().numpy())
+           if mc.mode == "trimodal" else None)
     fcap = (frames_cap if frames_cap is not None
-            else frames_bucket(mc, batch["frames_len"].cpu().numpy()))
+            else frames_bucket(mc, batch["frames_len"].cpu().numpy())
+            if mc.mode in ("text_video", "trimodal") else None)
     return cap, fcap
 
 

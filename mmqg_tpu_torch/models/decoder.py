@@ -1,4 +1,7 @@
-"""Attention decoder step (``mmqg_tpu/models/decoder.py``, attention path).
+"""Decoder steps (``mmqg_tpu/models/decoder.py``): the attention decoder
+and the non-attention decoder.
+
+Attention decoder:
 
   emb   = E[word]                                   (B, D)
   q     = [emb; h_top]                              (B, D + H)
@@ -14,6 +17,13 @@ Training runs :meth:`Decoder.teacher_forced_logits` (``decoder.py``'s
 with the differentiable ``trimodal_attention_xla`` in place of K2, dropout
 between LSTM layers, and one vocab projection over all (B * T) rows after
 the loop.
+
+Non-attention decoder (:class:`NonAttnDecoder`, the reference's AV-vector
+decoder): every step reads one vector, ``av_vec`` = [masked-mean audio
+memory; masked-mean video memory] (:func:`av_vector`, zeros for an absent
+modality), so x = [emb; av_vec] and no attention runs. Both decoders offer
+``step_inputs``, ``step`` and ``teacher_forced_logits`` with the same
+arguments, so every decode strategy runs either one.
 """
 
 from __future__ import annotations
@@ -97,6 +107,62 @@ class Decoder(nn.Module):
                                      dropout_rate=dropout,
                                      generator=generator, dtype=dtype)
             tops.append(top)
-        tops = torch.stack(tops, dim=1)                      # (B, T, H)
-        B, T, H = tops.shape
-        return self.out(tops.reshape(B * T, H), dtype).reshape(B, T, -1)
+        return _project(self.out, tops, dtype)
+
+
+def _project(out: L.Dense, tops, dtype: torch.dtype) -> Tensor:
+    """One vocab projection over all (B * T) rows of the step outputs."""
+    tops = torch.stack(tops, dim=1)                          # (B, T, H)
+    B, T, H = tops.shape
+    return out(tops.reshape(B * T, H), dtype).reshape(B, T, -1)
+
+
+def av_vector(mem: Memories) -> Tensor:
+    """[masked-mean audio memory (Ha); masked-mean video memory (Hv)]
+    (``qg_model.av_vector``), float32 (B, Ha + Hv)."""
+    def masked_mean(m, n):
+        live = (torch.arange(m.shape[1], device=m.device)[None, :]
+                < n[:, None])[..., None]
+        return (m * live).sum(1) / torch.clamp(n, min=1)[:, None]
+
+    return torch.cat([masked_mean(mem.enc_audio, mem.audio_len),
+                      masked_mean(mem.enc_video, mem.video_len)], dim=-1)
+
+
+class NonAttnDecoder(nn.Module):
+    def __init__(self, lstm: L.LSTM, out: L.Dense):
+        super().__init__()
+        self.lstm = lstm
+        self.out = out
+
+    def step_inputs(self, mem: Memories, dtype: torch.dtype) -> Tensor:
+        """The AV vector every step reads, from the float32 memories."""
+        return av_vector(mem)
+
+    def step(self, emb_table: Tensor, word: Tensor, av_vec: Tensor,
+             state: L.State, *, dtype: torch.dtype = torch.bfloat16
+             ) -> Tuple[Tensor, L.State, None]:
+        """One decode step (``decoder.non_attn_step``). Returns (logits
+        (B, V) f32, new state, None: there are no attention maps)."""
+        x = torch.cat([L.embed(emb_table, word), av_vec], dim=-1)
+        top, new_state = L.lstm_step(self.lstm, x, state, dtype=dtype)
+        return self.out(top, dtype), new_state, None
+
+    def teacher_forced_logits(self, emb_table: Tensor, inputs: Tensor,
+                              mem: Memories, init_state: L.State, *,
+                              dropout: float = 0.0,
+                              generator: Optional[torch.Generator] = None,
+                              dtype: torch.dtype = torch.bfloat16) -> Tensor:
+        """All-step teacher forcing (``decoder.non_attn_teacher_forced``)
+        with a fresh dropout mask per step from ``generator``. Returns
+        logits (B, T, V) f32."""
+        av_vec = av_vector(mem)
+        state = init_state
+        tops = []
+        for t in range(inputs.shape[1]):
+            x = torch.cat([L.embed(emb_table, inputs[:, t]), av_vec], dim=-1)
+            top, state = L.lstm_step(self.lstm, x, state,
+                                     dropout_rate=dropout,
+                                     generator=generator, dtype=dtype)
+            tops.append(top)
+        return _project(self.out, tops, dtype)

@@ -1,4 +1,15 @@
-"""Log-mel audio frontend on the device (``mmqg_tpu/models/frontends.py``).
+"""On-device frontends (``mmqg_tpu/models/frontends.py``): video frame
+preparation and the log-mel audio frontend.
+
+``prepare_frames``: uint8 frames -> [0, 1] -> the shortest side resized to
+``size`` -> per-channel normalisation, in float32. The resize is
+``jax.image.resize(method="cubic")``'s: a separable Keys cubic kernel
+(a = -0.5) over half-centred pixels, widened by 1 / scale when it
+downsamples (antialiasing) and renormalised to sum 1 per output pixel. The
+(out, in) weight matrices are built once per size pair in numpy, in
+float32 steps as JAX builds them, and applied as two matmuls on the
+device. (``torch.nn.functional.interpolate(mode="bicubic")`` is another
+function: a = -0.75 and no antialias.)
 
 int16 PCM is converted on the device; the STFT is one matmul of hop-aligned
 frames against a windowed cos/sin basis, then magnitude, the mel matmul and
@@ -11,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -19,6 +31,77 @@ from mmqg_tpu_torch.models.layers import mm
 
 Tensor = torch.Tensor
 
+
+# ------------------------------------------------------------------ video
+
+def keys_cubic(x: np.ndarray) -> np.ndarray:
+    """The Keys cubic kernel, a = -0.5, at distances ``x >= 0``."""
+    near = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1)
+    far = ((np.float32(-0.5) * x + np.float32(2.5)) * x
+           - np.float32(4)) * x + np.float32(2)
+    out = np.where(x >= 1, far, near)
+    return np.where(x >= 2, np.float32(0), out).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of a cubic resize along one axis
+    (``jax.image``'s ``compute_weight_mat`` with scale ``n_out / n_in``, no
+    translation, antialiased): output pixel j reads input pixel i with
+    weight ``kernel(|sample_j - i| / max(1 / scale, 1))``, the row
+    normalised to sum 1, and zero where the sample falls outside the
+    input."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]
+               ) / kernel_scale
+    w = keys_cubic(x.astype(f32))                        # (n_in, n_out)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0)).T
+                                .astype(np.float32))
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device: str) -> Tensor:
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
+
+
+def prepare_frames(frames: Tensor, *, size: int = 112,
+                   mean: Tuple[float, float, float] = (0.43216, 0.394666,
+                                                       0.37645),
+                   std: Tuple[float, float, float] = (0.22803, 0.22145,
+                                                      0.216989),
+                   normalize: bool = True) -> Tensor:
+    """(B, T, H, W, 3) frames (uint8, or float on the same 0-255 scale) ->
+    float32 (B, T, H', W', 3): ``/ 255``, the shortest side resized to
+    ``size`` (H' x W' = int(H * s) x int(W * s), s = size / min(H, W);
+    only when min(H, W) != size), then ``(x - mean) / std``."""
+    x = frames.float() / 255.0
+    B, T, H, W, C = x.shape
+    if min(H, W) != size:
+        scale = size / min(H, W)
+        out_h, out_w = int(H * scale), int(W * scale)
+        dev = str(x.device)
+        x = x.reshape(B * T, H, W, C)
+        if out_h != H:
+            x = torch.einsum("oh,nhwc->nowc",
+                             _resize_matrix(H, out_h, dev), x)
+        if out_w != W:
+            x = torch.einsum("pw,nhwc->nhpc",
+                             _resize_matrix(W, out_w, dev), x)
+        x = x.reshape(B, T, out_h, out_w, C)
+    if normalize:
+        x = ((x - torch.tensor(mean, device=x.device))
+             / torch.tensor(std, device=x.device))
+    return x
+
+
+# ------------------------------------------------------------------ audio
 
 def mel_filterbank(num_mel_bins: int, num_spectrogram_bins: int,
                    sample_rate: int, lower_hz: float,

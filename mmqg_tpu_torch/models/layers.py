@@ -220,6 +220,55 @@ def maxpool2d(x: Tensor, window: int) -> Tensor:
 _BN_MOMENTUM = 0.1
 
 
+def _f32_up(x: Tensor) -> Tensor:
+    """``x`` in float32, or in float64 when it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def affine(x: Tensor, a: Tensor, b: Tensor, relu: bool = False) -> Tensor:
+    """``x * a + b`` per channel (the last axis), then a ReLU when ``relu``:
+    one pass over ``x`` where the four of ``(x - mean) * rstd * scale +
+    bias`` make three temporaries of its size. Outside autograd."""
+    y = torch.addcmul(b, x, a)
+    return y.relu_() if relu else y
+
+
+class _BatchNormAll(torch.autograd.Function):
+    """Batchnorm over every position of channel-last ``x`` with batch
+    statistics, optionally followed by a ReLU: returns (y, mean, biased
+    var), y in float32 (float64 for float64 ``x``). The backward is the
+    batchnorm gradient from ``x`` as it came in and the per-channel mean
+    and 1 / std, so a (B, T, H, W, C) activation is kept once, in its own
+    dtype, where autograd through the same arithmetic keeps three float32
+    intermediates of its size."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float, relu: bool):
+        xf = _f32_up(x)
+        axes = tuple(range(x.dim() - 1))
+        var, mean = torch.var_mean(xf, dim=axes, correction=0)
+        rstd = torch.rsqrt(var + eps)
+        y = affine(xf, rstd * scale, bias - mean * rstd * scale, relu)
+        ctx.save_for_backward(x, mean, rstd, scale, bias)
+        ctx.relu = relu
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, rstd, scale, bias = ctx.saved_tensors
+        axes = tuple(range(x.dim() - 1))
+        xhat = (_f32_up(x) - mean) * rstd
+        if ctx.relu:
+            gy = torch.where(xhat * scale + bias > 0, gy, 0.0)
+        gbias = gy.sum(dim=axes)
+        gscale = (gy * xhat).sum(dim=axes)
+        n = x.numel() // x.shape[-1]
+        gx = (gy * scale - (gbias * scale) / n
+              - xhat * ((gscale * scale) / n)) * rstd
+        return gx.to(x.dtype), gscale, gbias, None, None
+
+
 class BatchNorm(nn.Module):
     def __init__(self, scale: Tensor, bias: Tensor, mean: Tensor, var: Tensor,
                  count: Optional[Tensor] = None):
@@ -233,9 +282,9 @@ class BatchNorm(nn.Module):
                              if count is None else count.reshape(()))
 
     def forward(self, x: Tensor, eps: float = 1e-5) -> Tensor:
-        """Eval batchnorm on channel-last ``x``: f32 maths, cast back to
-        ``x.dtype`` (``layers.batchnorm(train=False)``)."""
-        y = ((x.float() - self.mean) * torch.rsqrt(self.var + eps)
+        """Eval batchnorm on channel-last ``x``: f32 maths (f64 for f64
+        ``x``), cast back to ``x.dtype`` (``layers.batchnorm(train=False)``)."""
+        y = ((_f32_up(x) - self.mean) * torch.rsqrt(self.var + eps)
              * self.scale + self.bias)
         return y.to(x.dtype)
 
@@ -261,6 +310,42 @@ class BatchNorm(nn.Module):
                      "count": self.count + 1}
         y = (xf - mean) * torch.rsqrt(var + eps) * self.scale + self.bias
         return y.to(x.dtype), state
+
+    def train_forward_all(self, x: Tensor, eps: float = 1e-5, *,
+                          relu: bool = False
+                          ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Train batchnorm on channel-last ``x`` of any rank with the
+        statistics of every position (``layers.batchnorm(train=True)`` on
+        ``x`` cast to float32): normalise with the biased variance; the new
+        running variance takes the unbiased one, n = the number of
+        positions. ``relu`` applies a ReLU to the result. Returns (y in
+        float32, float64 for float64 ``x``; the new running state,
+        detached). The backward keeps ``x`` as it came (e.g. a bf16 conv
+        output) and the per-channel statistics, and recomputes the rest
+        (:class:`_BatchNormAll`)."""
+        y, mean, var = _BatchNormAll.apply(x, self.scale, self.bias, eps,
+                                           relu)
+        n = float(x.numel() // x.shape[-1])
+        with torch.no_grad():
+            state = {"mean": (1 - _BN_MOMENTUM) * self.mean
+                     + _BN_MOMENTUM * mean,
+                     "var": (1 - _BN_MOMENTUM) * self.var
+                     + _BN_MOMENTUM * var * (n / max(n - 1.0, 1.0)),
+                     "count": self.count + 1}
+        return y, state
+
+    def eval_all(self, x: Tensor, eps: float = 1e-5, *,
+                 relu: bool = False) -> Tensor:
+        """Eval batchnorm (then a ReLU when ``relu``) of a conv output
+        ``x``, in float32 (float64 for float64 ``x``) whatever ``x``'s
+        dtype: ``layers.batchnorm(train=False)`` of ``x`` cast to float32,
+        folded to one scale and shift per channel."""
+        a = self.scale * torch.rsqrt(self.var + eps)
+        return affine(_f32_up(x), a, self.bias - self.mean * a, relu)
+
+    def state(self) -> Dict[str, Tensor]:
+        """The running statistics (the buffers themselves)."""
+        return {"mean": self.mean, "var": self.var, "count": self.count}
 
     def load_state(self, state: Dict[str, Tensor]) -> None:
         """Write running statistics (from :meth:`train_forward`) into the

@@ -8,7 +8,8 @@
 
 All B*T frames go through the convs as one batch, in the compute dtype, with
 batchnorm maths in f32. uint8 frames feed conv1 directly: the ``/255``, mean
-and std are folded into its weights.
+and std are folded into its weights; float frames (``frontends
+.prepare_frames``'s, already normalised) take no ``normalization``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class VideoEncoder(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(bns)
         self.lstm = lstm
+
+    def bn_tree(self) -> Dict:
+        """The batchnorm modules in the JAX state pytree's structure."""
+        return {"bns": list(self.bns)}
 
     def cnn_features(self, frames: Tensor, *, normalization=None,
                      frame_mask: Optional[Tensor] = None,

@@ -98,12 +98,12 @@ class QGPipeline:
         (``config.question_max_length`` for a config-built ``mc``). The
         model goes to ``device``, the card by default; without CUDA that
         raises unless the caller passes ``device="cpu"``."""
-        qg_model.check_supported(mc)
         self.config = config
         self.mc = mc
         self.device = resolve_device(device, caller="QGPipeline")
         self.dtype = dtype
         self.model = params_from_numpy(params, model_state, self.device)
+        qg_model.check_supported(mc, self.model)
         self.vocab = vocab
         self.index_to_word = index_to_word
 
@@ -210,8 +210,14 @@ class QGPipeline:
         """Post-training int8 calibration on representative audio clips
         (the JAX pipeline's): static per-layer activation scales from the
         f32 conv stack (``AudioEncoder.calibrate_int8_scales``), kept in
-        ``self.mc.audio_int8_scales`` for serving. Returns self."""
+        ``self.mc.audio_int8_scales`` for serving. Returns self. Parameters
+        without an audio encoder raise KeyError, as in the JAX package;
+        with one, a mode that does not serve audio keeps the scales
+        unused."""
         mc = self.mc
+        if self.model.audio_enc is None:
+            raise KeyError("audio_enc: the parameters hold no audio encoder "
+                           "to calibrate")
         batch = self._pack([""] * len(audio), None, list(audio))
         pcm = torch.from_numpy(batch["audio_pcm"]).to(self.device)
         mel = frontends.log_mel_examples(

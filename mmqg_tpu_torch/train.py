@@ -4,9 +4,11 @@
     python -m mmqg_tpu_torch.train -c config.json --device cpu
 
 One train step: ``qg_model.loss_fn`` (train-mode encode, the text and video
-LSTMs through K4, teacher-forced decode) under autograd, then the optimizer
-of ``mmqg_tpu_torch.optim`` (optax's Adam/AdamW/SGD, schedules, clipping
-and the ``text_non_trainable`` freeze, in optax's state layout). Validation
+LSTMs through K4, teacher-forced decode) under autograd, in any mode,
+decoder and video backbone (``--mode``, ``--decoder``,
+``--video-encoder``), then the optimizer of ``mmqg_tpu_torch.optim``
+(optax's Adam/AdamW/SGD, schedules, clipping and the
+``text_non_trainable`` freeze, in optax's state layout). Validation
 is the greedy-fed CE decode through K1 and K2 plus BLEU. Checkpoints are the
 JAX package's msgpack train state, so each package resumes the other's.
 
@@ -162,9 +164,10 @@ def make_validate_step(mc: qg_model.ModelConfig, *,
     """``validate_step(model, batch, audio_cap, frames_cap) ->
     (per_sample_loss (B,), tokens (B, T))``: the greedy-fed validation
     decode (``train.make_validate_step``). Encode runs through K1, each of
-    the ``target_steps`` decode steps through K2 on the card; argmax feeds
-    the next step and the CE is taken against the target at every step,
-    averaged per sample over its target length."""
+    the ``target_steps`` decode steps through K2 on the card (the attention
+    decoder) or reads the AV vector (the non-attention decoder); argmax
+    feeds the next step and the CE is taken against the target at every
+    step, averaged per sample over its target length."""
     @torch.no_grad()
     def validate_step(model: qg_model.QGModel, batch: Dict[str, Tensor],
                       audio_cap: Optional[int] = None,
@@ -256,10 +259,11 @@ class Trainer:
     # ------------------------------------------------------------- epochs
     def caps_for(self, arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
         """The ``audio_cap``/``frames_cap`` keywords of the train step for
-        this batch: its AV buckets at ``train_av_bucket_granularity``, from
-        the host arrays (no device round trip); none without AV
-        bucketing."""
-        if not self.av_bucketing:
+        this batch (``train.Trainer._step_for``): its AV buckets at
+        ``train_av_bucket_granularity``, from the host arrays (no device
+        round trip), for the modalities the mode encodes; none in mode
+        text or without AV bucketing."""
+        if not self.av_bucketing or self.mc.mode == "text":
             return {}
         av = self.mc.av_max_length
         g = self.av_bucket_granularity
@@ -267,9 +271,11 @@ class Trainer:
         def bucket(need):
             return DEC._bucket(min(max(need, 1), av), av, granularity=g)
 
-        return {"audio_cap": bucket(DEC.audio_examples_needed(
-                    self.mc, arrays["audio_len"])),
-                "frames_cap": bucket(int(np.max(arrays["frames_len"])))}
+        caps = {"frames_cap": bucket(int(np.max(arrays["frames_len"])))}
+        if self.mc.mode == "trimodal":
+            caps["audio_cap"] = bucket(DEC.audio_examples_needed(
+                self.mc, arrays["audio_len"]))
+        return caps
 
     def run_epoch(self, epoch: int) -> float:
         bs = self.config.batch_size
@@ -304,10 +310,15 @@ class Trainer:
 
         def dispatch(batch):
             arrays = batch_arrays(batch)
+            # the JAX package validates uncapped; R(2+1)D's memories depend
+            # on the frames cap (a defect of the reference, ROADMAP queue
+            # 3), so it is validated at av_max_length as there; the others
+            # give the same answers at their buckets
+            fcap = (mc.av_max_length if mc.video_encoder == "resnet"
+                    else DEC.frames_bucket(mc, arrays["frames_len"]))
             return self.validate_step(
                 self.train_state.model, to_device(arrays, self.device),
-                DEC.audio_bucket(mc, arrays["audio_len"]),
-                DEC.frames_bucket(mc, arrays["frames_len"]))
+                DEC.audio_bucket(mc, arrays["audio_len"]), fcap)
 
         def finalize(out, batch):
             per_sample, toks = (x.cpu().numpy() for x in out)
@@ -438,6 +449,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                         choices=["text", "text_video", "trimodal"])
     parser.add_argument("--decoder", type=str, default="attn",
                         choices=["attn", "non_attn"])
+    parser.add_argument("--video-encoder", type=str, default=None,
+                        choices=["conv_lstm", "resnet"],
+                        help="video backbone: conv_lstm or resnet "
+                             "(R(2+1)D-18); overrides config video_encoder "
+                             "and is recorded in the saved config snapshot")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--resume", action="store_true",
                         help="resume from a checkpoint (the port's or the "
@@ -461,6 +477,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     config = Config.load(args.config_path) if args.config_path else Config()
     if args.grad_accum:
         config = config.replace(grad_accum_steps=args.grad_accum)
+    if args.video_encoder:
+        config = config.replace(video_encoder=args.video_encoder)
     config.ensure_dirs()
     train_ds = QGDataset(config, config.train_file,
                          load_media=args.mode != "text")

@@ -152,17 +152,31 @@ def test_bf16_decode_band(model):
 
 
 def test_only_greedy_is_ported(model):
-    """Every strategy of the JAX decode is ported now (their parity is in
+    """Every strategy of the JAX decode is ported (their parity is in
     test_torch_decode_strategies.py): an unknown one raises ValueError, as
-    in JAX, before any encoding; the non-attention decoder is still not
-    ported."""
+    in JAX, before any encoding. The non-attention decoder is ported too:
+    on the same tiny model with its decoder, greedy decoding gives the JAX
+    package's tokens (every configuration: test_torch_model_configs.py),
+    and an unknown decoder raises ValueError."""
     mc, _, _, port = model
     tmc = TQ.ModelConfig(**mc._asdict())
     for strategy in ("beam", "nucleus"):
         with pytest.raises(ValueError, match="unknown strategy"):
             DEC.decode_batch(port, tmc, None, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="ported"):
-        TQ.check_supported(tmc._replace(decoder="non_attn"))
+    tmc = tmc._replace(decoder="non_attn")
+    TQ.check_supported(tmc)
+    with pytest.raises(ValueError, match="decoder"):
+        TQ.check_supported(tmc._replace(decoder="pointer"))
+    params, state = TQ.init_params(tmc, 3)
+    b = tiny_batch(mc, B=4, seed=5)
+    ref = np.asarray(JDEC.decode_batch(
+        params, state, mc._replace(decoder="non_attn"),
+        {k: jnp.asarray(v) for k, v in b.items()}, jax.random.PRNGKey(0),
+        max_len=mc.target_steps - 1, use_pallas=False, dtype=jnp.float32))
+    got = DEC.decode_batch(params_from_numpy(params, state), tmc,
+                           torch_batch(b), max_len=mc.target_steps - 1,
+                           dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_tokens_to_words_matches_jax():

@@ -115,8 +115,30 @@ def test_cli_refuses_what_is_not_ported(setup):
         E.main(base + ["--data-parallel"])
     with pytest.raises(NotImplementedError, match="item 22"):
         E.main(base + ["--streaming"])
-    with pytest.raises(NotImplementedError, match="ported"):
+    # the non-attention decoder is ported: it needs parameters of its own
+    # (a checkpoint of the attention decoder is refused with ValueError),
+    # and on them it writes the JAX CLI's predictions
+    with pytest.raises(ValueError, match="decoder='non_attn'"):
         E.main(base + ["--decoder", "non_attn"])
+    cfg, _, mc, _, _ = setup
+    na = cfg.replace(output_path=cfg.output_path.parent / "non_attn")
+    na.ensure_dirs()
+    na_path = na.save(na.output_path / "config.json")
+    params, state = TQ.init_params(TQ.ModelConfig(**mc._asdict())._replace(
+        decoder="non_attn"), 5)
+    JC.save_checkpoint(na.checkpoint_dir, "best", jax.tree.map(np.asarray, {
+        "params": params, "model_state": state,
+        "opt_state": JT.make_optimizer(na).init(params),
+        "step": np.zeros((), np.int32)}))
+    argv = ["-c", str(na_path), "-s", "greedy", "--decoder", "non_attn"]
+    out = na.output_path / "best_predictions_greedy.json"
+    ref_bleu = JE.main(argv)
+    ref = json.loads(out.read_text())
+    out.unlink()
+    assert E.main(argv + ["--device", "cpu"]) == ref_bleu
+    assert json.loads(out.read_text()) == ref
+    with pytest.raises(SystemExit):
+        E.main(base + ["--decoder", "pointer"])
     with pytest.raises(SystemExit, match="no 'last' checkpoint"):
         E.main(base + ["--last"])
     if not torch.cuda.is_available():

@@ -1,13 +1,17 @@
 """QGPipeline of the PyTorch port: packing vs the JAX pipeline, generate vs
 its own decode_batch + tokens_to_words, and the no-JAX import rule."""
 
+import functools
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mmqg_tpu import decode as JDEC
+from mmqg_tpu.models import qg_model as JQ
 from mmqg_tpu.pipeline import QGPipeline as JaxPipeline
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.models import qg_model as TQ
@@ -122,9 +126,23 @@ def test_generate_async_pins_caps_and_guards_strategy(pipes, tiny_config):
                 port._to_words(toks.numpy())[:2]), strategy
     with pytest.raises(ValueError, match="unknown strategy"):
         port.generate(contexts, frames, audio, strategy="nucleus")
+    # the non-attention decoder is ported: it needs parameters of its own
+    # (the attention decoder's are refused), and on them generate() gives
+    # the JAX pipeline's questions (f32)
     mc = port.mc._replace(decoder="non_attn")
-    with pytest.raises(NotImplementedError, match="ported"):
+    with pytest.raises(ValueError, match="decoder='non_attn'"):
         QGPipeline(None, mc, *pipes[2], device="cpu")
+    params, state = TQ.init_params(mc, 4)
+    vocab, i2w = pipes[2][2:]
+    na = QGPipeline(tiny_config, mc, params, state, vocab, i2w,
+                    device="cpu", dtype=torch.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JDEC, "decode_batch",
+                   functools.partial(JDEC.decode_batch, dtype=jnp.float32))
+        ref = JaxPipeline(tiny_config, JQ.ModelConfig(**mc._asdict()),
+                          params, state, vocab, i2w)
+        assert (na.generate(contexts, frames, audio)
+                == ref.generate(contexts, frames, audio))
 
 
 @pytest.mark.parametrize("strategy", ["sampling", "topp", "beam"])

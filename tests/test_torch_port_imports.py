@@ -175,7 +175,9 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "('jax', 'jaxlib', 'flax', 'mmqg_tpu')]\n"
         "need = {'mmqg_tpu_torch.serve', 'mmqg_tpu_torch.data.native', "
         "'mmqg_tpu_torch.data.saliency', 'mmqg_tpu_torch.data.subtitles', "
-        "'mmqg_tpu_torch.data.text_prep'}\n"
+        "'mmqg_tpu_torch.data.text_prep', "
+        "'mmqg_tpu_torch.models.video_resnet', "
+        "'mmqg_tpu_torch.compat.from_torchvision'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 20 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -399,13 +399,34 @@ def test_serve_as_a_process_on_the_cpu(saved, media):
     ([], RuntimeError, "no CUDA device"),
     (["--device", "cuda:0"], RuntimeError, "no CUDA device"),
     (["--device", "cpu", "--data-parallel"], NotImplementedError, "item 19"),
-    (["--device", "cpu", "--mode", "text"], NotImplementedError, "ported"),
-    (["--device", "cpu", "--decoder", "non_attn"], NotImplementedError,
-     "ported"),
+    (["--device", "cpu", "--mode", "text"], None, "ready alias=best"),
+    (["--device", "cpu", "--decoder", "non_attn"], ValueError,
+     "decoder='non_attn'"),
 ])
 def test_main_needs_the_card_unless_asked_and_refuses_what_is_not_ported(
-        saved, argv, error, match):
-    _, path = saved
+        saved, argv, error, match, monkeypatch, capsys):
+    """Without --device the daemon needs the card; --data-parallel is not
+    ported. Every mode and decoder is: --mode text serves the tri-modal
+    checkpoint's text encoder and decoder (the answers of the port's text
+    pipeline, whose JAX parity is checked here in f32 too), and --decoder
+    non_attn refuses parameters of the attention decoder."""
+    cfg, path = saved
     assert not torch.cuda.is_available()
-    with pytest.raises(error, match=match):
-        S.main(["-c", str(path), "--best", "-s", "greedy"] + argv)
+    argv = ["-c", str(path), "--best", "-s", "greedy"] + argv
+    if error is not None:
+        with pytest.raises(error, match=match):
+            S.main(argv)
+        return
+    reqs = [{"id": i, "context": caption(i)} for i in range(3)]
+    monkeypatch.setattr(sys, "stdin", io.StringIO(_lines(reqs)))
+    S.main(argv)
+    out, err = capsys.readouterr()
+    assert match in err and "served 3 requests" in err
+    got = {r["id"]: r["question"] for r in map(json.loads, out.splitlines())}
+    contexts = [r["context"] for r in reqs]
+    pipe = P.QGPipeline.from_checkpoint(cfg, mode="text", device="cpu")
+    assert [got[i] for i in range(3)] == pipe.generate(contexts)
+    with f32_pipelines(cfg) as (jax_pipe, port):
+        jax_pipe.mc = jax_pipe.mc._replace(mode="text")
+        port.mc = port.mc._replace(mode="text")
+        assert port.generate(contexts) == jax_pipe.generate(contexts)

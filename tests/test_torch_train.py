@@ -30,6 +30,7 @@ from flax import serialization
 from mmqg_tpu import checkpoint as JC
 from mmqg_tpu import train as JT
 from mmqg_tpu.data.dataset import QGDataset
+from mmqg_tpu.models import qg_model as JQ
 from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch.compat.from_jax import (load_train_state,
                                             params_from_numpy,
@@ -271,11 +272,35 @@ def test_cli_trains_on_cpu_and_writes_stats_checkpoints_config(
 
 def test_cli_refuses_unported_modes_and_a_missing_card(tiny_config,
                                                        tiny_corpus, tmp_path):
-    _, path = _config_file(tiny_config, tmp_path)
-    with pytest.raises(NotImplementedError, match="ported"):
-        main(["-c", str(path), "--mode", "text_video", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ported"):
-        main(["-c", str(path), "--decoder", "non_attn", "--device", "cpu"])
+    """Every mode and decoder trains now: --mode text_video and --decoder
+    non_attn each run an epoch and write a checkpoint that the JAX package
+    restores into its own train state of that configuration; an unknown
+    mode or decoder is refused as by the JAX CLI; without a card the
+    default device raises."""
+    cfg, path = _config_file(tiny_config, tmp_path)
+    ds = QGDataset(cfg, cfg.train_file, load_media=False)
+    for mode, dec in (("text_video", "attn"), ("trimodal", "non_attn")):
+        main(["-c", str(path), "--mode", mode, "--decoder", dec,
+              "--epochs", "1", "--device", "cpu"])
+        jmc = JQ.ModelConfig.from_config(cfg, n_vocab=len(ds.vocab),
+                                         mode=mode, dec=dec)
+        params, state = jax.eval_shape(lambda: JQ.init(
+            jax.random.PRNGKey(0), jmc, np.zeros(
+                (len(ds.vocab), cfg.glove_emb_dim), np.float32)))
+        target = {"params": params, "model_state": state,
+                  "opt_state": JT.make_optimizer(cfg).init(params),
+                  "step": jnp.zeros((), jnp.int32)}
+        restored, meta = JC.load_checkpoint(cfg.checkpoint_dir, "last",
+                                            target)
+        assert meta["mode"] == mode and int(restored["step"]) > 0
+        assert (jax.tree.structure(restored["params"])
+                == jax.tree.structure(params))
+        assert all(np.isfinite(np.asarray(x)).all()
+                   for x in jax.tree.leaves(restored["params"]))
+    for bad in (["--mode", "audio"], ["--decoder", "pointer"],
+                ["--video-encoder", "i3d"]):
+        with pytest.raises(SystemExit):
+            main(["-c", str(path), "--device", "cpu"] + bad)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(["-c", str(path)])

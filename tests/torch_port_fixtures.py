@@ -40,6 +40,123 @@ def tiny_model(config, n_vocab: int = 40, seed: int = 0):
     return mc, params, state
 
 
+class _F64Numpy:
+    """``jax.numpy`` with ``float32`` meaning float64, for a module whose
+    float32 casts are to run in float64."""
+
+    def __init__(self):
+        import jax.numpy as jnp
+        self._jnp = jnp
+        self.float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+
+@contextlib.contextmanager
+def jax_resnet_f64(force: bool = False):
+    """The JAX package's R(2+1)D computing in float64: its conv outputs
+    and batchnorms (``video_resnet``'s float32 casts, ``layers.batchnorm``)
+    in float64, inside ``jax.enable_x64``. With ``force``,
+    ``apply_temporal`` also runs its convs in float64 whatever dtype it is
+    called with, and returns float32 features (the video tower of a
+    float32 model)."""
+    import jax
+    import jax.numpy as jnp
+    import pytest
+    from types import SimpleNamespace
+
+    from mmqg_tpu.models import layers as JL
+    from mmqg_tpu.models import video_resnet as JR
+
+    f64 = _F64Numpy()
+
+    def batchnorm(*args, **kw):
+        saved = JL.jnp
+        JL.jnp = f64
+        try:
+            return saved_batchnorm(*args, **kw)
+        finally:
+            JL.jnp = saved
+
+    saved_batchnorm = JL.batchnorm
+    orig = JR.apply_temporal
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JR, "jnp", f64)
+        mp.setattr(JR, "L", SimpleNamespace(batchnorm=batchnorm,
+                                            dense=JL.dense))
+        if force:
+            def apply_temporal(p, s, clips, *, train=False, dtype=None):
+                y, st = orig(p, s, clips, train=train, dtype=jnp.float64)
+                return y.astype(jnp.float32), st
+            mp.setattr(JR, "apply_temporal", apply_temporal)
+        yield
+
+
+@contextlib.contextmanager
+def jax_video_stats_f64():
+    """The JAX package's conv-pyramid video encoder with its float32 maths
+    (the masked batchnorm statistics and normalisation, conv1's folded
+    input normalisation) in float64, inside ``jax.enable_x64``."""
+    import jax
+    import pytest
+
+    from mmqg_tpu.models import video_encoder as JVE
+
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JVE, "jnp", _F64Numpy())
+        yield
+
+
+@contextlib.contextmanager
+def port_resnet_f64():
+    """The port's R(2+1)D tower run in float64 (``VideoResNet.temporal``
+    with float64 clips and compute dtype), returning float32 features: the
+    counterpart of ``jax_resnet_f64(force=True)``."""
+    import pytest
+
+    from mmqg_tpu_torch.models.video_resnet import VideoResNet
+
+    orig = VideoResNet.temporal
+
+    def temporal(self, clips, *, train=False, dtype=None):
+        y, st = orig(self, clips.double(), train=train, dtype=torch.float64)
+        return y.float(), st
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(VideoResNet, "temporal", temporal)
+        yield
+
+
+def random_stats(state, rng):
+    """Non-trivial batchnorm running statistics in a ``model_state`` (or
+    any) tree, in place: mean N(0, 0.2), var U(0.5, 1.5)."""
+    if isinstance(state, dict) and "mean" in state:
+        c = state["mean"].shape[0]
+        state["mean"] = (0.2 * rng.randn(c)).astype(np.float32)
+        state["var"] = (0.5 + rng.rand(c)).astype(np.float32)
+    elif isinstance(state, dict):
+        for v in state.values():
+            random_stats(v, rng)
+    elif isinstance(state, list):
+        for v in state:
+            random_stats(v, rng)
+    return state
+
+
+def walk(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of one structure,
+    following ``a``'s dicts and lists."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from walk(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from walk(x, y, f"{path}/{i}")
+    else:
+        yield path, a, b
+
+
 def tiny_batch(mc, B: int = 4, seed: int = 1):
     """Ragged-length model inputs (numpy), at full AV length."""
     rng = np.random.RandomState(seed)
