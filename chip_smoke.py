@@ -101,6 +101,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             of the three card vs CPU in f32 on 4 requests: identical
             questions for every strategy run
 
+17. dp      data parallelism at the flagship's full width: QGPipeline
+            .shard() over every visible card, or two replicas on cuda:0
+            when there is one (they test the split and the merge, not
+            scaling), serves 37 requests (64 rows, split in row blocks) in
+            f32: launches and routes per replica (K1 4x persistent, K2 21x
+            tiled, the int8 conv 5x wgmma, quantize_s8 5x) adding up to
+            the unsharded counts times the replicas; the tokens of greedy,
+            sampling (per-row and per-batch streams), topk, topp and beam
+            (K=4) equal the unsharded pipeline's; bf16 generate() unsharded
+            and sharded in turns, of 37 and of 128 requests. Then a
+            two-rank data-parallel train step
+            (spawned processes: gloo on cuda:0 tensors with one card, NCCL
+            over two cards with more), B=16 with 8 rows a rank and fewer
+            frames on rank 1, f32, SGD, against one process's step on the
+            16 rows: loss, every gradient leaf, the parameters, K4 4x
+            persistent each way a rank, equal parameters on both ranks;
+            the step ms at world size 1 and 2, the gradient all-reduce's
+            ms, and one NCCL group at world size 1 (its all-reduce checked
+            and timed). Each group's backend and world size is printed
+
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
 bf16 cuDNN tower in turns (int8, bf16, bf16, int8). Phase 6 also compares
@@ -115,10 +135,19 @@ ms where one computes the same function); the last line is ``{"ok": true, "devic
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports nothing of JAX and nothing of the JAX package
 ``mmqg_tpu``, and checks at the end that no such module was loaded.
+
+    python3 chip_smoke.py --dp-clis
+
+runs, after phases 1 and 2, the data-parallel CLIs as processes over every
+visible card on a corpus it writes at the flagship's shapes: ``train
+--data-parallel`` (its workers' peak RSS), ``evaluate --data-parallel
+--streaming`` against the unsharded evaluate's predictions, and ``serve
+--data-parallel`` against the unsharded daemon (``phase_dp_clis``).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import io
 import json
@@ -3119,6 +3148,567 @@ def phase_configs(card: str) -> dict:
             "resize": resize, "train": train}
 
 
+# --------------------------------------------------------------- the dp phase
+
+DP_REQUESTS = 37      # odd: the request bucket (64 rows) and the padding split
+DP_LARGE = 128        # a second batch, timed only: 128 rows
+DP_TRAIN_B = 16       # the two-rank train step: 8 rows a rank
+DP_SHORT_FRAMES = 24  # rank 1's rows keep at most this many frames
+DP_TIMEOUT = 420      # seconds a rank may take before the phase fails
+
+
+def dp_devices(device: str) -> list:
+    """Every visible card, or two replicas on the first when there is one
+    (two on the CPU, where the phase is rehearsed)."""
+    n = torch.cuda.device_count() if device == "cuda" else 1
+    return ([torch.device(device, i) for i in range(n)] if n > 1
+            else [torch.device(device, 0)] * 2)
+
+
+def check_dp_launches(single: dict, sharded: dict, replicas: int) -> None:
+    """One unsharded greedy generate() launches K1 4x, K2 21x, the int8
+    conv and its quantize 5x each; the sharded one, over ``replicas``
+    replicas, that many times as many."""
+    want = {"lstm_seq": 4, "trimodal_attention": 21, "vggish_conv_int8": 5,
+            "quantize_s8": 5}
+    for k, n in want.items():
+        if single[k] != n or sharded[k] != replicas * n:
+            raise AssertionError(f"dp: {k} launched {single[k]} unsharded, "
+                                 f"{sharded[k]} over {replicas} replicas "
+                                 f"(want {n} and {replicas * n})")
+    check_routes("dp: sharded K1", dict(lstm_seq.routes), replicas * 4)
+    check_only_route("dp: sharded K2", dict(trimodal_attention.routes),
+                     "tiled", replicas * 21)
+    check_only_route("dp: sharded int8 conv",
+                     dict(V.conv3x3_relu_int8.routes), "wgmma", replicas * 5)
+
+
+def check_dp_k4(out: dict, ref: dict) -> None:
+    """A rank's train step launched K4 4x each way, by the persistent
+    route, as the one-process step did."""
+    want = {"persistent": 4, "per_step": 0}
+    if (out["fwd_routes"] != want or out["bwd_routes"] != want
+            or ref["fwd_routes"] != want):
+        raise AssertionError(f"dp: K4 routes fwd {out['fwd_routes']} bwd "
+                             f"{out['bwd_routes']}, one process "
+                             f"{ref['fwd_routes']} (want {want})")
+
+
+def _wall_questions(pipe, req) -> float:
+    """Wall ms of one generate() (it returns with the questions)."""
+    t0 = time.perf_counter()
+    pipe.generate(*req)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _dp_serving(card: str, model, device: str) -> dict:
+    """Sharded vs unsharded serving of DP_REQUESTS requests at full width:
+    launches and routes, tokens of every strategy in f32, generate() ms in
+    turns in bf16."""
+    from mmqg_tpu_torch.parallel import make_mesh, pad_batch
+
+    mc, params, state, vocab, i2w = model
+    req = requests(mc, DP_REQUESTS, SEED + 9)
+    mesh = make_mesh(devices=dp_devices(device))
+    R = mesh.dp
+    one_card = len(set(mesh.data_devices)) == 1
+    log(f"dp: serving over {mesh}" + (": two replicas on one card test the "
+                                      "split and the merge, not scaling"
+                                      if one_card else ""))
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device=device,
+                      dtype=torch.float32)
+    sharded = copy.copy(pipe).shard(mesh)
+    pipe.generate(*req)                       # warm-up: cuDNN plans, caches
+    sharded.generate(*req)
+    _reset_launches()
+    ref = pipe.generate(*req)
+    single = _launches()
+    _reset_launches()
+    got = sharded.generate(*req)
+    launches = _launches()
+    log(f"dp: greedy generate() of {DP_REQUESTS} requests ("
+        f"{pipe._batch_bucket(DP_REQUESTS)} rows, {R} replicas): launches "
+        f"unsharded {single}, sharded {launches}")
+    check_dp_launches(single, launches, R)
+    same = {"greedy": got == ref}
+    for strategy, kw in (("sampling", {"seed": 3}),
+                         ("topk", {"topk": 3, "seed": 3}),
+                         ("topp", {"top_p": 0.9, "seed": 3}),
+                         ("beam", {"beam_size": 4})):
+        same[strategy] = (sharded.generate(*req, strategy=strategy, **kw)
+                          == pipe.generate(*req, strategy=strategy, **kw))
+    # the per-batch stream (evaluate's): each replica draws the noise of
+    # the whole padded batch and keeps its rows
+    host = pipe._pack(*req)
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, host["frames_len"]))
+    kw = dict(strategy="sampling", max_len=mc.target_steps - 1,
+              dtype=torch.float32, **caps)
+    whole = DEC.decode_batch(pipe.model, mc, to_device(pad_batch(host, R),
+                                                       device),
+                             prng.prng_key(5, device), **kw).cpu().numpy()
+    split = sharded.replicas.map(
+        lambda m, b, lo, total: DEC.decode_batch(
+            m, mc, b, prng.prng_key(5, m.embedding.device),
+            global_rows=(lo, total), **kw), host)()
+    same["sampling per-batch stream"] = bool(np.array_equal(split, whole))
+    log(f"dp: f32 sharded == unsharded tokens {same} (int8 audio tower)")
+    if not all(same.values()):
+        raise AssertionError(f"dp: sharded serving differs: {same}")
+
+    pipe_b = QGPipeline(None, mc, params, state, vocab, i2w, device=device,
+                        dtype=torch.bfloat16)
+    pipes = {"unsharded": pipe_b, "sharded": copy.copy(pipe_b).shard(mesh)}
+    generate_ms = {}
+    for n in (DP_REQUESTS, DP_LARGE):
+        req_n = req if n == DP_REQUESTS else requests(mc, n, SEED + 10)
+        for p_ in pipes.values():
+            p_.generate(*req_n)
+        ms = {k: [] for k in pipes}
+        for name in list(pipes) + list(pipes)[::-1]:
+            ms[name].append(_wall_questions(pipes[name], req_n))
+        log(f"dp: greedy generate() of {n} requests, bf16, in turns: "
+            + ", ".join(f"{k} " + " / ".join(f"{t:.1f}" for t in v)
+                        + " ms (" + " / ".join(f"{n / t * 1e3:.1f}"
+                                               for t in v)
+                        + " questions/s)" for k, v in ms.items())
+            + f" [{card}]")
+        generate_ms[n] = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"launches": launches, "replicas": R, "generate_ms": generate_ms}
+
+
+def _dp_batch(mc, i2w) -> tuple:
+    """(host batch of DP_TRAIN_B rows, caps): rank 1's rows keep at most
+    DP_SHORT_FRAMES frames, so the ranks' batchnorm statistics differ."""
+    host = batch_arrays(SyntheticCorpus(mc, i2w, 1, DP_TRAIN_B, SEED + 11,
+                                        max_audio_s=8).batch(0))
+    half = DP_TRAIN_B // 2
+    host["frames_len"][half:] = np.minimum(host["frames_len"][half:],
+                                           DP_SHORT_FRAMES)
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, host["frames_len"]))
+    return host, caps
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_step(model_np, mc, host, caps, group, device: str) -> dict:
+    """One f32 SGD train step of ``host`` on the card, data-parallel over
+    ``group`` (this process's row block) or alone (None): the objective,
+    the gradients the optimizer got, the parameters after it, K4's
+    launches and routes, the step's wall ms (median of 3 more steps), the
+    gradient all-reduce's ms and how far the ranks' parameters differ."""
+    from mmqg_tpu_torch.optim import Transform
+    from mmqg_tpu_torch.parallel import multihost, pad_batch, row_block
+
+    params, state = model_np
+    model = params_from_numpy(params, state, device, trainable=True)
+    qg_model.set_process_group(model, group)
+    base = make_optimizer(train_config(DP_TRAIN_B, optim="sgd", lr=SGD_LR))
+    grads = []
+
+    def update(g, s, p):
+        grads.append(tree_map(lambda x: x.detach().cpu(), g))
+        return base.update(g, s, p)
+    opt = Transform(base.init, update)
+    tree = qg_model.param_tree(model)
+    ts = TrainState(model, opt.init(tree))
+    step = make_train_step(mc, opt, dtype=torch.float32, process_group=group)
+    rank, world = multihost.world(group) if group is not None else (0, 1)
+    rows = pad_batch(host, world)
+    lo, hi = row_block(rank, world, len(rows["valid"]))
+    batch = to_device({k: v[lo:hi] for k, v in rows.items()}, device)
+    _reset_launches()
+    ts, m = step(ts, batch, None, **caps)
+    _sync(device)
+    out = {"loss": float(m["objective"]), "grads": grads[0],
+           "params": tree_map(lambda p: p.detach().cpu(), tree),
+           "launches": _launches(),
+           "fwd_routes": dict(lstm_layer_train.fwd_routes),
+           "bwd_routes": dict(lstm_layer_train.bwd_routes),
+           "differ": multihost.replicas_differ(tree_leaves(tree), group)}
+    walls = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        step(ts, batch, None, **caps)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = float(np.median(walls))
+    leaves = [p.detach().clone() for p in tree_leaves(tree)]
+    reduce_ms = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        multihost.all_reduce_flat(leaves, group)
+        _sync(device)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = float(np.median(reduce_ms))
+    out["grad_mb"] = sum(x.numel() for x in leaves) * 4 / 2 ** 20
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, backend: str, device: str,
+            inputs: str, result: str) -> None:
+    """One rank of the dp phase's train step (a spawned process)."""
+    import torch.distributed as dist
+
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+    from mmqg_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = TF32
+    torch.backends.cudnn.allow_tf32 = TF32
+    dev = torch.device(device)
+    if device == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    multihost.initialize_multihost(f"localhost:{port}", world, rank,
+                                   device=dev, backend=backend,
+                                   timeout_s=DP_TIMEOUT)
+    # one write, so that the ranks' lines do not interleave
+    print(f"dp: rank {rank} group backend {dist.get_backend()} world "
+          f"{dist.get_world_size()} on {dev}\n", end="", flush=True)
+    blob = ckpt_io.msgpack_restore(Path(inputs).read_bytes())
+    mc = ModelConfig(**json.loads(blob["mc"]))
+    host = {k: np.array(v) for k, v in blob["host"].items()}  # writable
+    out = _dp_step((blob["params"], blob["model_state"]), mc, host,
+                   {k: int(v) for k, v in blob["caps"].items()},
+                   dist.group.WORLD, device)
+    torch.save(out, result)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_world_one(grad_mb: float) -> float:
+    """An NCCL group of one rank on cuda:0: one all-reduce checked, then
+    a gradient-sized all-reduce timed (ms)."""
+    import torch.distributed as dist
+
+    from mmqg_tpu_torch.parallel import multihost
+
+    multihost.initialize_multihost(f"localhost:{_free_port()}", 1, 0,
+                                   device="cuda:0")
+    try:
+        log(f"dp: group backend {dist.get_backend()} world "
+            f"{dist.get_world_size()} on cuda:0")
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        if not torch.equal(x.cpu(), torch.arange(8, dtype=torch.float32)):
+            raise AssertionError("dp: NCCL all-reduce at world size 1")
+        flat = torch.ones(int(grad_mb * 2 ** 20 / 4), device="cuda")
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms[1:]))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_training(card: str, model, device: str) -> dict:
+    """Two ranks' data-parallel train step (gloo on cuda:0 with one card,
+    NCCL over two cards with more) against one process's step on the same
+    DP_TRAIN_B rows, f32, at full width."""
+    import multiprocessing
+
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+
+    mc, params, state, vocab, i2w = model
+    params = he_vggish(params)
+    host, caps = _dp_batch(mc, i2w)
+    half = DP_TRAIN_B // 2
+    log(f"dp: train batch {DP_TRAIN_B} (8 rows a rank), valid frames rank 0 "
+        f"{int(host['frames_len'][:half].sum())}, rank 1 "
+        f"{int(host['frames_len'][half:].sum())}; caps {caps}")
+    ref = _dp_step((params, state), mc, host, caps, None, device)
+    log(f"dp: world size 1 (one process, 16 rows): step {ref['step_ms']:.1f}"
+        f" ms, K4 launches fwd {ref['launches']['lstm_train_fwd']} bwd "
+        f"{ref['launches']['lstm_train_bwd']} [{card}]")
+    backend = ("nccl" if device == "cuda" and torch.cuda.device_count() > 1
+               else "gloo")
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="mmqg_dp_") as tmp:
+        inputs = Path(tmp) / "inputs.msgpack"
+        inputs.write_bytes(ckpt_io.msgpack_serialize({
+            "params": params, "model_state": state, "host": host,
+            "caps": {k: np.int64(v) for k, v in caps.items()},
+            "mc": json.dumps(mc._asdict())}))
+        if device == "cuda":
+            torch.cuda.empty_cache()    # the ranks share the card
+        ctx = multiprocessing.get_context("spawn")
+        port = _free_port()
+        results = [Path(tmp) / f"rank{r}.pt" for r in range(world)]
+        procs = [ctx.Process(target=dp_rank, args=(r, world, port, backend,
+                                                   device, str(inputs),
+                                                   str(results[r])))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        try:
+            deadline = time.time() + DP_TIMEOUT
+            for proc in procs:
+                proc.join(max(1.0, deadline - time.time()))
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        codes = [proc.exitcode for proc in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"dp: train ranks exited with {codes}")
+        ranks = [torch.load(r, weights_only=False) for r in results]
+    names = list(_leaf_names(qg_model.param_tree(params_from_numpy(
+        params, state))))
+    for r, out in enumerate(ranks):
+        lines, failed = compare_train_steps(
+            (out["loss"], out["grads"], out["params"], {}),
+            (ref["loss"], ref["grads"], ref["params"], {}), names)
+        log(f"dp: rank {r} ({backend}, world {world}) vs one process: "
+            + lines[0])
+        log(f"  {lines[1]}")
+        log(f"  rank {r}: K4 launches fwd {out['launches']['lstm_train_fwd']}"
+            f" bwd {out['launches']['lstm_train_bwd']}, routes fwd "
+            f"{out['fwd_routes']} bwd {out['bwd_routes']}; step "
+            f"{out['step_ms']:.1f} ms; gradient all-reduce "
+            f"{out['allreduce_ms']:.1f} ms ({out['grad_mb']:.1f} MB); ranks' "
+            f"parameters differ by {out['differ']:.1e} [{card}]")
+        if failed or out["differ"] != 0.0:
+            raise AssertionError(f"dp: train rank {r} is off: see above")
+        check_dp_k4(out, ref)
+    total = {k: sum(o["launches"][k] for o in ranks)
+             for k in ("lstm_train_fwd", "lstm_train_bwd")}
+    if total != {k: world * ref["launches"][k] for k in total}:
+        raise AssertionError(f"dp: K4 launches over the ranks {total}")
+    nccl_ms = None
+    if device == "cuda":
+        nccl_ms = _nccl_world_one(ref["grad_mb"])
+        log(f"dp: NCCL all-reduce of {ref['grad_mb']:.1f} MB at world size "
+            f"1: {nccl_ms:.2f} ms [{card}]")
+    return {"launches": total, "backend": backend,
+            "step_ms": {"world 1": ref["step_ms"],
+                        "world 2": float(np.median([o["step_ms"]
+                                                    for o in ranks]))},
+            "allreduce_ms": float(np.median([o["allreduce_ms"]
+                                             for o in ranks])),
+            "nccl_world1_ms": nccl_ms}
+
+
+def phase_dp(card: str, device: str = "cuda") -> dict:
+    """17. dp: data parallelism at the flagship's full width (``device``
+    "cpu" rehearses it, with the kernels' plain versions)."""
+    t0 = time.perf_counter()
+    model = flagship()
+    serving = _dp_serving(card, model, device)
+    training = _dp_training(card, model, device)
+    log(f"dp: phase wall {time.perf_counter() - t0:.1f} s")
+    return {"serving": serving, "training": training}
+
+
+# ------------------------------------------------------------ dp CLIs
+
+# `python3 chip_smoke.py --dp-clis`: the data-parallel CLIs as processes,
+# over every visible card, on a corpus written at the flagship's shapes
+CLI_SPLITS = {"train": 64, "val": 32, "test": 96}  # examples a split
+CLI_BATCH, CLI_EVAL_BATCH = 32, 16   # eval batches need no padding on 4
+CLI_EPOCHS = 2
+CLI_SERVE = 24        # daemon requests, staged media of the test split
+CLI_TIMEOUT = 900     # seconds a CLI process may take
+# runs a CLI's main() and reports the peak resident set of the process
+# and of its largest child (the train CLI's spawned workers)
+MAXRSS = ("import resource, sys\n"
+          "from mmqg_tpu_torch import {module} as m\n"
+          "m.main(sys.argv[1:])\n"
+          "print('maxrss_kb', resource.getrusage(resource.RUSAGE_SELF)"
+          ".ru_maxrss, resource.getrusage(resource.RUSAGE_CHILDREN)"
+          ".ru_maxrss, file=sys.stderr)\n")
+
+
+def write_corpus(root) -> tuple:
+    """A corpus in the reference's layout at the flagship's shapes, made
+    from SEED: the vocabulary (``alpha_vocab``), a 300-d embedding matrix,
+    the train/val/test question files (CLI_SPLITS examples; contexts of
+    40-283 words, questions of 4-20), and each example's salient frames
+    (.npy, 20-101 uint8 frames at 112 x 112) and 16 kHz clip (.wav, 8-32
+    s). Returns (config path, Config)."""
+    from mmqg_tpu_torch.config import Config
+
+    rng = np.random.default_rng(SEED + 20)
+    vocab, i2w = alpha_vocab(N_VOCAB)
+    words = np.array([i2w[str(i)] for i in range(3, N_VOCAB)])
+    root = Path(root)
+    config = Config(output_path=root / "results", data_path=root / "data",
+                    dataset_path=root / "dataset", batch_size=CLI_BATCH,
+                    eval_batch_size=CLI_EVAL_BATCH)
+    for d in (config.data_path, config.salient_frames_path,
+              config.salient_audio_path):
+        d.mkdir(parents=True, exist_ok=True)
+    with open(config.vocab_file, "w") as f:
+        json.dump(vocab, f)
+    with open(config.index_to_word_file, "w") as f:
+        json.dump(i2w, f)
+    np.save(config.weights_matrix_file,
+            rng.normal(size=(N_VOCAB, config.glove_emb_dim)
+                       ).astype(np.float32))
+    fs, sr, av = config.frame_size, config.audio_sample_rate, \
+        config.av_max_length
+    qid = 0
+    for split, n in CLI_SPLITS.items():
+        records = []
+        for _ in range(n):
+            vid = f"lec{qid % 7}"
+            records.append({
+                "question_id": qid, "video_id": vid, "answer": "",
+                "question": " ".join(rng.choice(words, rng.integers(4, 21))),
+                "context": " ".join(rng.choice(words,
+                                               rng.integers(40, 284)))})
+            t = int(rng.integers(max(1, av // 5), av + 1))
+            np.save(config.salient_frames_path / f"v_{vid}_q_{qid}_.npy",
+                    rng.integers(0, 256, (t, fs, fs, 3), np.uint8))
+            write_wav(config.salient_audio_path / f"v_{vid}_q_{qid}_.wav",
+                      tones(rng, int(rng.integers(8 * sr, 32 * sr + 1)), sr),
+                      sr)
+            qid += 1
+        with open(config.data_path / f"{split}_questions.json", "w") as f:
+            json.dump(records, f)
+    return config.save(root / "config.json"), config
+
+
+def run_cli(module: str, args: list, what: str, stdin: str = "") -> dict:
+    """``python -c MAXRSS`` running ``mmqg_tpu_torch.<module>.main(args)``
+    from the repo root: its wall, stdout and stderr, and the peak RSS
+    (GiB) of the process and of its largest child. Fails unless it exits
+    0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", MAXRSS.format(module=module)] + args,
+        input=stdin, capture_output=True, text=True, timeout=CLI_TIMEOUT,
+        cwd=REPO)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dp-clis: {what} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    kb = [line.split()[1:] for line in proc.stderr.splitlines()
+          if line.startswith("maxrss_kb")][-1]
+    own, child = (int(k) / 2 ** 20 for k in kb)
+    return {"wall_s": wall, "stdout": proc.stdout, "stderr": proc.stderr,
+            "rss_gib": own, "child_rss_gib": child}
+
+
+def _serve_answers(cfg: list, lines: str, extra: list, what: str) -> dict:
+    out = run_cli("serve", cfg + ["--best", "-s", "greedy", "--max-batch",
+                                  "32", "--linger-ms", "200"] + extra,
+                  what, stdin=lines)
+    responses = [json.loads(line) for line in out["stdout"].splitlines()]
+    check_answers(what, responses, list(range(CLI_SERVE)), 0)
+    out["questions"] = {r["id"]: r["question"] for r in responses}
+    return out
+
+
+def phase_dp_clis(card: str) -> dict:
+    """The data-parallel CLIs over every visible card, as a user runs them:
+    ``train --data-parallel`` (a spawned worker a card, streaming their
+    rows) for CLI_EPOCHS epochs, its stats and checkpoints, the largest
+    worker's peak RSS; ``evaluate --data-parallel --streaming`` (beam;
+    batches of CLI_EVAL_BATCH rows that need no padding, more of them than
+    the loader's three buffers) against the unsharded ``evaluate``'s
+    predictions, which must be identical; ``serve --data-parallel`` on
+    CLI_SERVE staged requests against the unsharded daemon."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mmqg_dp_clis_") as root:
+        config_path, config = write_corpus(root)
+        log(f"dp-clis: corpus of {CLI_SPLITS} examples at the flagship's "
+            f"shapes written in {time.perf_counter() - t0:.1f} s; {n} cards")
+        cfg = ["-c", str(config_path)]
+        train = run_cli("train", cfg + ["--data-parallel", "--epochs",
+                                        str(CLI_EPOCHS)], "train")
+        with open(config.stats_json_path) as f:
+            stats = json.load(f)
+        epochs = len(stats["train"]["loss"])
+        losses = stats["train"]["loss"] + stats["val"]["loss"]
+        if (epochs != CLI_EPOCHS or not np.all(np.isfinite(losses))
+                or not (config.checkpoint_dir / "best.msgpack").exists()):
+            raise AssertionError(f"dp-clis: train wrote {stats}")
+        workers = [line for line in train["stdout"].splitlines()
+                   if line.startswith("data-parallel")]
+        # what each worker would hold of a materialised train + val split
+        held = (CLI_SPLITS["train"] + CLI_SPLITS["val"]) * (
+            config.av_max_length * (config.frame_size ** 2 * 3
+                                    + 2 * config.audio_sample_rate))
+        log(f"dp-clis: `train -c <config> --data-parallel --epochs "
+            f"{CLI_EPOCHS}`: {workers}; train loss {stats['train']['loss']}"
+            f", val loss {stats['val']['loss']}; {train['wall_s']:.1f} s "
+            f"wall (start, spawn and kernel library included); peak RSS "
+            f"{train['rss_gib']:.2f} GiB the parent, "
+            f"{train['child_rss_gib']:.2f} GiB the largest worker (a "
+            f"materialised train + val split "
+            f"would be {held / 2 ** 30:.2f} GiB more a worker) [{card}]")
+
+        preds = config.output_path / "best_predictions_beam.json"
+        evals = {}
+        for name, extra in (("unsharded", []),
+                            ("--data-parallel --streaming",
+                             ["--data-parallel", "--streaming"])):
+            evals[name] = run_cli("evaluate", cfg + ["-s", "beam", "--best"]
+                                  + extra, f"evaluate {name}")
+            with open(preds) as f:
+                evals[name]["predictions"] = json.load(f)
+        ref, got = (evals[k]["predictions"] for k in evals)
+        same = sum(a == b for a, b in zip(ref, got))
+        log(f"dp-clis: `evaluate -s beam --best`, {len(ref)} test examples "
+            f"in batches of {CLI_EVAL_BATCH}: unsharded "
+            f"{evals['unsharded']['wall_s']:.1f} s, --data-parallel "
+            f"--streaming {evals['--data-parallel --streaming']['wall_s']:.1f}"
+            f" s wall; {same} of {len(ref)} predictions identical [{card}]")
+        if len(got) != len(ref) or same != len(ref):
+            raise AssertionError("dp-clis: sharded evaluate differs")
+
+        rows = json.load(open(config.test_file))[:CLI_SERVE]
+        lines = "".join(json.dumps({
+            "id": i, "context": r["context"],
+            "frames_npy": str(config.salient_frames_path
+                              / f"v_{r['video_id']}_q_{r['question_id']}_.npy"),
+            "audio_wav": str(config.salient_audio_path
+                             / f"v_{r['video_id']}_q_{r['question_id']}_.wav")})
+            + "\n" for i, r in enumerate(rows))
+        single = _serve_answers(cfg, lines, [], "serve")
+        sharded = _serve_answers(cfg, lines, ["--data-parallel"],
+                                 "serve --data-parallel")
+        equal = sum(single["questions"][i] == sharded["questions"][i]
+                    for i in range(CLI_SERVE))
+        ready = [line for line in sharded["stderr"].splitlines()
+                 if line.startswith("ready")]
+        log(f"dp-clis: `serve --best -s greedy` on {CLI_SERVE} staged "
+            f"requests: unsharded {single['wall_s']:.1f} s, --data-parallel "
+            f"{sharded['wall_s']:.1f} s wall, {ready[:1]}; {equal} of "
+            f"{CLI_SERVE} questions identical (waves form in prep "
+            f"completion order, so a row may meet other batch shapes) "
+            f"[{card}]")
+    wall = time.perf_counter() - t0
+    log(f"dp-clis: phase wall {wall:.1f} s")
+    return {"cards": n, "train_wall_s": train["wall_s"],
+            "train_worker_rss_gib": train["child_rss_gib"],
+            "materialised_split_gib": held / 2 ** 30,
+            "evaluate_wall_s": {k: v["wall_s"] for k, v in evals.items()},
+            "evaluate_identical": same,
+            "serve_wall_s": {"unsharded": single["wall_s"],
+                             "--data-parallel": sharded["wall_s"]},
+            "serve_identical": equal, "wall_s": wall}
+
+
 class Clock:
     """Wall seconds by phase, printed as each ends and summed at the end."""
 
@@ -3131,6 +3721,15 @@ class Clock:
         self.phases[name] = now - self.last
         self.last = now
         log(f"phase {name}: {self.phases[name]:.1f} s")
+
+
+def main_dp_clis() -> None:
+    """``--dp-clis``: the data-parallel CLIs over every visible card."""
+    dev = phase_device()
+    phase_build()
+    log("dp-clis: " + json.dumps(phase_dp_clis(dev["card"])))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
 
 
 def main() -> None:
@@ -3165,6 +3764,8 @@ def main() -> None:
     clock.lap("video+serve")
     configs = phase_configs(dev["card"])
     clock.lap("configs")
+    dp = phase_dp(dev["card"])
+    clock.lap("dp")
     log(f"phases: {time.perf_counter() - clock.t0:.1f} s in all")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu")]
@@ -3189,7 +3790,8 @@ def main() -> None:
          "source": "mmqg_tpu_torch/csrc/lstm_seq.cu",
          "replaces": "mmqg_tpu/ops/lstm_pallas.py:100",
          "launches": launches["lstm_seq"],
-         "launches_by_config": per_config("lstm_seq"), **k1},
+         "launches_by_config": per_config("lstm_seq"),
+         "launches_dp": dp["serving"]["launches"]["lstm_seq"], **k1},
         {"name": "trimodal_attention", "route": "cuda",
          "design": "blocks of 16 batch rows x 16 positions x 128 memory "
                    "columns, mma.sync bf16 scores, flash-decoding partials "
@@ -3198,6 +3800,7 @@ def main() -> None:
          "replaces": "mmqg_tpu/ops/attention_pallas.py:83",
          "launches": launches["trimodal_attention"],
          "launches_by_config": per_config("trimodal_attention"),
+         "launches_dp": dp["serving"]["launches"]["trimodal_attention"],
          **strategies, **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
          "design": "K1's persistent sweep emitting h, c and gates + "
@@ -3206,6 +3809,7 @@ def main() -> None:
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:147",
          "launches": train_launches["lstm_train_fwd"],
          "launches_by_config": per_config("lstm_train_fwd", trained),
+         "launches_dp": dp["training"]["launches"]["lstm_train_fwd"],
          **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
          "design": "persistent sweep + mma.sync GEMMs",
@@ -3213,6 +3817,7 @@ def main() -> None:
          "replaces": "mmqg_tpu/ops/lstm_train_pallas.py:209",
          "launches": train_launches["lstm_train_bwd"],
          "launches_by_config": per_config("lstm_train_bwd", trained),
+         "launches_dp": dp["training"]["launches"]["lstm_train_bwd"],
          **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
          "design": "wgmma implicit GEMM, 3-stage cp.async ring",
@@ -3226,6 +3831,7 @@ def main() -> None:
          "replaces": "mmqg_tpu/models/audio_encoder.py:157",
          "launches": launches["vggish_conv_int8"],
          "launches_by_config": per_config("vggish_conv_int8"),
+         "launches_dp": dp["serving"]["launches"]["vggish_conv_int8"],
          **int8["conv"]},
         {"name": "quantize_s8", "route": "cuda",
          "design": "the int8 tower's activation quantize: one pass, 16 "
@@ -3233,11 +3839,18 @@ def main() -> None:
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
          "replaces": "mmqg_tpu/models/audio_encoder.py:147",
          "launches": launches["quantize_s8"],
-         "launches_by_config": per_config("quantize_s8"), **int8["quant"]}]
+         "launches_by_config": per_config("quantize_s8"),
+         "launches_dp": dp["serving"]["launches"]["quantize_s8"],
+         **int8["quant"]}]
+    log("dp: " + json.dumps({
+        "replicas": dp["serving"]["replicas"],
+        "generate_ms": dp["serving"]["generate_ms"],
+        "train": {k: v for k, v in dp["training"].items()
+                  if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
 
 
 if __name__ == "__main__":
-    main()
+    main_dp_clis() if sys.argv[1:] == ["--dp-clis"] else main()

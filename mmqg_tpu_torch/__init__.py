@@ -13,7 +13,9 @@ encoder), with the int8 VGGish audio tower on the card as the JAX package
 serves off the CPU:
 
     QGPipeline(...).generate(contexts, frames, audio, strategy="greedy")
+    QGPipeline(...).shard()          # data-parallel over every visible card
     python -m mmqg_tpu_torch.train -c config.json [--device cpu]
+    python -m mmqg_tpu_torch.train -c config.json --data-parallel
 
 Layout:
   pipeline.py       QGPipeline: pack requests, encode, decode, detokenise;
@@ -24,7 +26,10 @@ Layout:
   checkpoint.py     reads and writes the JAX package's msgpack checkpoints
   config.py         Config with the JAX package's config.json round trip
   metrics.py        BLEU suite (standard and reference-compat)
-  data/             vocab ids, WAV reading, QGDataset batches
+  data/             vocab ids, WAV reading, QGDataset batches, the
+                    streaming loader and its native pack pool
+  parallel/         data parallelism: the mesh and batch rules, model
+                    replicas for serving, the multi-process runtime
   utils/            pipelined host loops
   compat/           from_jax: JAX train-state pytree (numpy leaves) <->
                     modules; from_torchvision: r2plus1d_18 weights

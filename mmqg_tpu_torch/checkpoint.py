@@ -34,6 +34,8 @@ from typing import Optional
 
 import numpy as np
 
+from mmqg_tpu_torch.parallel import multihost
+
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _MAX_CHUNK_BYTES = 2 ** 30  # flax's MAX_CHUNK_SIZE
 _NOT_PORTED = ("not ported: the port writes msgpack checkpoints "
@@ -141,22 +143,47 @@ def msgpack_serialize(tree: Any) -> bytes:
                          strict_types=True)
 
 
-def save_checkpoint(ckpt_dir: Path, alias: str, train_state: Dict[str, Any],
+def _only_primary(group, write) -> None:
+    """``write()`` on the primary of ``group`` (a torch.distributed group
+    of a data-parallel run; None: this process alone), then every process
+    of the group waits until it is done (a barrier), so none reads a file
+    before it is published."""
+    if group is None:
+        write()
+        return
+    try:
+        if multihost.is_primary(group):
+            write()
+    finally:
+        multihost.barrier(group)
+
+
+def save_checkpoint(ckpt_dir: Path, alias: str,
+                    train_state: Optional[Dict[str, Any]],
                     metadata: Optional[Dict[str, Any]] = None,
                     backend: str = "msgpack",
-                    async_save: bool = False) -> Path:
+                    async_save: bool = False, *, group=None) -> Path:
     """Write ``<ckpt_dir>/<alias>.msgpack`` (published atomically with
     ``os.replace``) and the ``<alias>.json`` metadata sidecar.
     ``train_state`` is the JAX layout with numpy leaves (see
-    ``compat.from_jax.train_state_to_numpy``). The orbax backend and
-    asynchronous saves raise NotImplementedError."""
+    ``compat.from_jax.train_state_to_numpy``). With a process ``group``
+    (data-parallel training) only its primary writes -- the others may
+    pass None -- and every process returns once the files are published.
+    The orbax backend and asynchronous saves raise NotImplementedError."""
     if backend == "orbax" or async_save:
         raise NotImplementedError(
             f"checkpoint backend={backend!r} async_save={async_save}: "
             + _NOT_PORTED)
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
-    ckpt_dir = Path(ckpt_dir)
+    path = Path(ckpt_dir) / f"{alias}.msgpack"
+    _only_primary(group, lambda: _write_checkpoint(Path(ckpt_dir), alias,
+                                                   train_state, metadata))
+    return path
+
+
+def _write_checkpoint(ckpt_dir: Path, alias: str, train_state: Dict[str, Any],
+                      metadata: Optional[Dict[str, Any]]) -> None:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / f"{alias}.msgpack"
     tmp = path.with_suffix(".tmp")
@@ -168,19 +195,23 @@ def save_checkpoint(ckpt_dir: Path, alias: str, train_state: Dict[str, Any],
     if metadata is not None:
         with open(ckpt_dir / f"{alias}.json", "w") as f:
             json.dump(metadata, f, indent=2, default=str)
-    return path
 
 
 def copy_checkpoint(ckpt_dir: Path, src_alias: str, dst_alias: str,
                     backend: str = "msgpack",
-                    async_copy: bool = False) -> None:
+                    async_copy: bool = False, *, group=None) -> None:
     """Duplicate a published alias (``.msgpack`` and ``.json``), e.g.
-    ``best`` from a just-written ``last``, atomically."""
+    ``best`` from a just-written ``last``, atomically; with a process
+    ``group``, on its primary, the others waiting for it."""
     if backend == "orbax" or async_copy:
         raise NotImplementedError(
             f"copy_checkpoint backend={backend!r} async_copy={async_copy}: "
             + _NOT_PORTED)
-    ckpt_dir = Path(ckpt_dir)
+    _only_primary(group, lambda: _copy_checkpoint(Path(ckpt_dir), src_alias,
+                                                  dst_alias))
+
+
+def _copy_checkpoint(ckpt_dir: Path, src_alias: str, dst_alias: str) -> None:
     dst = ckpt_dir / f"{dst_alias}.msgpack"
     tmp = dst.with_suffix(".tmp")
     shutil.copyfile(ckpt_dir / f"{src_alias}.msgpack", tmp)

@@ -45,6 +45,41 @@ class Batch:
         return int(self.valid.sum())
 
 
+def encode_text_fields(config, records: List[Dict], vocab: Dict[str, int],
+                       load_media: bool) -> Dict:
+    """The text side of every example and its media paths, shared by
+    ``QGDataset`` and ``streaming.StreamingLoader`` (the JAX package's
+    ``encode_text_fields``): context and target ids and lengths, question
+    ids and strings, and the ``.npy``/``.wav`` paths that exist (None for a
+    missing file, or for every row when ``load_media`` is false)."""
+    Lc = config.context_max_length
+    Td = config.question_max_length + 1  # question tokens + <end>
+    n = len(records)
+    out = {"context_ids": np.zeros((n, Lc), np.int32),
+           "context_len": np.zeros((n,), np.int32),
+           "target_ids": np.zeros((n, Td), np.int32),
+           "target_len": np.zeros((n,), np.int32),
+           "question_id": np.zeros((n,), np.int32),
+           "questions": [], "frame_paths": [], "wav_paths": []}
+    for i, rec in enumerate(records):
+        ctx = encode_tokens(rec["context"], vocab)
+        tgt = encode_tokens(f"{rec['question']} {END}", vocab)
+        out["context_ids"][i] = pad_to(ctx, Lc)
+        out["context_len"][i] = min(len(ctx), Lc)
+        out["target_ids"][i] = pad_to(tgt, Td)
+        out["target_len"][i] = min(len(tgt), Td)
+        out["question_id"][i] = int(rec["question_id"])
+        out["questions"].append(rec["question"])
+        vid, qid = rec["video_id"], rec["question_id"]
+        fpath = Path(config.salient_frames_path) / f"v_{vid}_q_{qid}_.npy"
+        apath = Path(config.salient_audio_path) / f"v_{vid}_q_{qid}_.wav"
+        out["frame_paths"].append(
+            str(fpath) if load_media and os.path.exists(fpath) else None)
+        out["wav_paths"].append(
+            str(apath) if load_media and os.path.exists(apath) else None)
+    return out
+
+
 class QGDataset:
     """One split, read eagerly into padded arrays; ``batches`` yields
     fixed-shape batches. ``load_media=False`` leaves frames and audio
@@ -59,52 +94,38 @@ class QGDataset:
         with open(config.index_to_word_file) as f:
             self.index_to_word: Dict[str, str] = json.load(f)
 
-        Lc = config.context_max_length
-        Td = config.question_max_length + 1  # question tokens + <end>
+        text = encode_text_fields(config, self.records, self.vocab,
+                                  load_media)
+        self.context_ids = text["context_ids"]
+        self.context_len = text["context_len"]
+        self.target_ids = text["target_ids"]
+        self.target_len = text["target_len"]
+        self.question_id = text["question_id"]
+        self.questions: List[str] = text["questions"]
         Tav = config.av_max_length
         H = W = config.frame_size
-        S = Tav * config.audio_sample_rate
         n = len(self.records)
-        self.context_ids = np.zeros((n, Lc), np.int32)
-        self.context_len = np.zeros((n,), np.int32)
-        self.target_ids = np.zeros((n, Td), np.int32)
-        self.target_len = np.zeros((n,), np.int32)
-        self.question_id = np.zeros((n,), np.int32)
-        self.questions: List[str] = []
         self.frames = np.zeros((n, Tav, H, W, 3), np.uint8)
         self.frames_len = np.zeros((n,), np.int32)
-        self.audio_pcm = np.zeros((n, S), np.int16)
+        self.audio_pcm = np.zeros((n, Tav * config.audio_sample_rate),
+                                  np.int16)
         self.audio_len = np.zeros((n,), np.int32)
-        for i, rec in enumerate(self.records):
-            ctx = encode_tokens(rec["context"], self.vocab)
-            tgt = encode_tokens(f"{rec['question']} {END}", self.vocab)
-            self.context_ids[i] = pad_to(ctx, Lc)
-            self.context_len[i] = min(len(ctx), Lc)
-            self.target_ids[i] = pad_to(tgt, Td)
-            self.target_len[i] = min(len(tgt), Td)
-            self.question_id[i] = int(rec["question_id"])
-            self.questions.append(rec["question"])
-            if load_media:
-                self._load_media(i, rec["video_id"], rec["question_id"])
+        for i, (fpath, apath) in enumerate(zip(text["frame_paths"],
+                                               text["wav_paths"])):
+            if fpath is not None:
+                fr = np.load(fpath)
+                t = min(fr.shape[0], Tav)
+                if t > 0:
+                    self.frames[i, :t] = fr[:t]
+                self.frames_len[i] = t
+            if apath is not None:
+                pcm = wavio.load_mono_16k(apath, config.audio_sample_rate)
+                s = min(len(pcm), self.audio_pcm.shape[1])
+                self.audio_pcm[i, :s] = np.clip(
+                    pcm[:s] * 32767.0, -32768, 32767).astype(np.int16)
+                self.audio_len[i] = s
         # at least one AV step, so attention over the AV axes stays defined
         np.maximum(self.frames_len, 1, out=self.frames_len)
-
-    def _load_media(self, i: int, vid, qid) -> None:
-        cfg = self.config
-        fpath = Path(cfg.salient_frames_path) / f"v_{vid}_q_{qid}_.npy"
-        apath = Path(cfg.salient_audio_path) / f"v_{vid}_q_{qid}_.wav"
-        if os.path.exists(fpath):
-            fr = np.load(fpath)
-            t = min(fr.shape[0], self.frames.shape[1])
-            if t > 0:
-                self.frames[i, :t] = fr[:t]
-            self.frames_len[i] = t
-        if os.path.exists(apath):
-            pcm = wavio.load_mono_16k(apath, cfg.audio_sample_rate)
-            s = min(len(pcm), self.audio_pcm.shape[1])
-            self.audio_pcm[i, :s] = np.clip(
-                pcm[:s] * 32767.0, -32768, 32767).astype(np.int16)
-            self.audio_len[i] = s
 
     def __len__(self) -> int:
         return len(self.records)

@@ -1,18 +1,24 @@
-"""ctypes bindings for the native media library, ``native/mmqg_media.cpp``
-(the media half of ``mmqg_tpu/data/native.py``): container demux, audio
-decode and resampling, and seek-decode of video frames by index, through
-the system's libav libraries.
+"""ctypes bindings for the native host libraries (``mmqg_tpu/data/native.py``):
 
-The C++ source lies outside both packages and is compiled as it is, with
-g++, into this package's own ``build/native/`` (gitignored) at first use:
-not into ``native/``, where the JAX package's ``make -C native media``
-builds the same library, so that two test workers on a fresh checkout
-never load a file the other is still writing. The library is written under
+* the media library, ``native/mmqg_media.cpp``: container demux, audio
+  decode and resampling, and seek-decode of video frames by index, through
+  the system's libav libraries;
+* the host runtime, ``native/mmqg_host.cpp``: the threaded batch packer
+  that fills a batch's frame and audio buffers from the corpus's ``.npy``
+  and ``.wav`` files while the device runs the previous batch
+  (:func:`pack_batch_async`, for ``data.streaming``).
+
+The C++ sources lie outside both packages and are compiled as they are,
+with g++, into this package's own ``build/native/`` (gitignored) at first
+use: not into ``native/``, where the JAX package's ``make -C native``
+builds the same libraries, so that two test workers on a fresh checkout
+never load a file the other is still writing. A library is written under
 a temporary name and moved into place with ``os.replace``; it is rebuilt
-when the source is newer. When libav's development files or libraries are
-missing, ``get_media_lib()`` returns None and the callers take their other
-routes (cv2 frames; staged wavs or the ffmpeg binary for audio), which
-they count (``saliency.frame_routes``, ``pipeline.audio_routes``).
+when its source is newer. When a library cannot be built or loaded its
+getter returns None and the callers take their other routes (cv2 frames;
+staged wavs or the ffmpeg binary for audio; packing in Python), which they
+count (``saliency.frame_routes``, ``pipeline.audio_routes``,
+``streaming.pack_routes``).
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 MEDIA_SRC = _PKG.parent / "native" / "mmqg_media.cpp"
+HOST_SRC = _PKG.parent / "native" / "mmqg_host.cpp"
 BUILD_DIR = _PKG / "build" / "native"
 MEDIA_LIB_PATH = BUILD_DIR / "libmmqg_media.so"
+HOST_LIB_PATH = BUILD_DIR / "libmmqg_host.so"
 # native/Makefile's CXXFLAGS and LDFLAGS defaults and its `media` rule's
 # libraries (native/Makefile:1-3,13-17)
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
@@ -39,23 +47,42 @@ LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswresample", "-lswscale")
 
 _media_lib = None
 _media_tried = False  # set once the build and load have been attempted
-# the prep thread pools call get_media_lib concurrently on first use: one
+_host_lib = None
+_host_tried = False
+# the prep thread pools call the getters concurrently on first use: one
 # builds and loads, the others wait for it under the lock
 _load_lock = threading.Lock()
 
 
-def _build_media_lib() -> None:
-    """Compile ``MEDIA_SRC`` into ``MEDIA_LIB_PATH`` (raises on failure)."""
+def _build_lib(src: Path, out: Path, libs=()) -> None:
+    """Compile ``src`` into the shared library ``out`` (raises on
+    failure)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / (f"{MEDIA_LIB_PATH.name}.{os.getpid()}."
-                       f"{threading.get_ident()}.tmp")
+    tmp = BUILD_DIR / f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(MEDIA_SRC), *LD_FLAGS, *LIBS,
+        subprocess.run(["g++", *CXX_FLAGS, str(src), *LD_FLAGS, *libs,
                         "-o", str(tmp)], check=True, capture_output=True,
                        timeout=120)
-        os.replace(tmp, MEDIA_LIB_PATH)
+        os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+
+
+def _built(src: Path, out: Path, libs=()) -> bool:
+    """Whether ``out`` exists, (re)building it first when it is missing or
+    older than ``src``. A failed rebuild of a stale library keeps the old
+    one, with a warning."""
+    stale = (out.exists() and src.exists()
+             and src.stat().st_mtime > out.stat().st_mtime)
+    if not out.exists() or stale:
+        try:
+            _build_lib(src, out, libs)
+        except (OSError, subprocess.SubprocessError):
+            if not out.exists():
+                return False
+            warnings.warn(f"native lib rebuild failed; using the STALE {out}",
+                          RuntimeWarning)
+    return True
 
 
 def get_media_lib() -> Optional[ctypes.CDLL]:
@@ -79,19 +106,8 @@ def get_media_lib() -> Optional[ctypes.CDLL]:
 
 
 def _load_media_lib() -> Optional[ctypes.CDLL]:
-    stale = (MEDIA_LIB_PATH.exists() and MEDIA_SRC.exists()
-             and MEDIA_SRC.stat().st_mtime > MEDIA_LIB_PATH.stat().st_mtime)
-    if not MEDIA_LIB_PATH.exists() or stale:
-        try:
-            _build_media_lib()
-        except (OSError, subprocess.SubprocessError):
-            if not MEDIA_LIB_PATH.exists():
-                return None
-            # stale but loadable is still usable (the hasattr guard below
-            # skips symbols an old build lacks), but say so
-            warnings.warn(
-                "native media lib rebuild failed; using the STALE "
-                f"{MEDIA_LIB_PATH}", RuntimeWarning)
+    if not _built(MEDIA_SRC, MEDIA_LIB_PATH, LIBS):
+        return None
     try:
         lib = ctypes.CDLL(str(MEDIA_LIB_PATH))
     except OSError:
@@ -345,3 +361,118 @@ def write_test_av_mp4(path, seconds: float = 6.0, freq: int = 440, *,
     return lib.mmqg_write_test_av_mp4(str(path).encode(), float(seconds),
                                       int(freq), 1, int(width), int(height),
                                       int(fps)) == 0
+
+
+# ------------------------------------------------------ the host runtime
+
+def get_host_lib() -> Optional[ctypes.CDLL]:
+    """The loaded host runtime (``native/mmqg_host.cpp``: the batch
+    packer), built first if missing or stale; None when it cannot be built
+    or loaded here. A concurrent first caller waits for the build, as with
+    :func:`get_media_lib`."""
+    global _host_lib, _host_tried
+    if _host_tried:
+        return _host_lib
+    with _load_lock:
+        if not _host_tried:
+            try:
+                _host_lib = _load_host_lib()
+            finally:
+                _host_tried = True
+    return _host_lib
+
+
+def _load_host_lib() -> Optional[ctypes.CDLL]:
+    if not _built(HOST_SRC, HOST_LIB_PATH):
+        return None
+    try:
+        lib = ctypes.CDLL(str(HOST_LIB_PATH))
+    except OSError:
+        return None
+    lib.mmqg_pack_submit.restype = ctypes.c_void_p
+    lib.mmqg_pack_submit.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int16), ctypes.c_long, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int]
+    lib.mmqg_pack_wait.restype = ctypes.c_int
+    lib.mmqg_pack_wait.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class PackHandle:
+    """A batch being packed by the native pool's threads."""
+
+    def __init__(self, lib, handle, keep):
+        self._lib = lib
+        self._handle = handle
+        self._keep = keep  # buffers and path strings, alive until wait()
+
+    def wait(self) -> int:
+        """Join the pack job; returns the number of items that failed."""
+        if self._handle is None:
+            return 0
+        errors = self._lib.mmqg_pack_wait(ctypes.c_void_p(self._handle))
+        self._handle = None
+        self._keep = None
+        return errors
+
+    def __del__(self):
+        # a dropped handle still joins its threads: they write into
+        # buffers the interpreter would otherwise free under them
+        if self._handle is not None:
+            self.wait()
+
+
+def pack_batch_async(frame_paths: Sequence[Optional[str]],
+                     wav_paths: Sequence[Optional[str]],
+                     frames: np.ndarray, audio: np.ndarray,
+                     frames_len: np.ndarray, audio_len: np.ndarray, *,
+                     target_rate: int = 16000,
+                     n_threads: int = 2) -> Optional[PackHandle]:
+    """Start filling a batch's media slots on ``n_threads`` native threads
+    (the JAX package's ``pack_batch_async``): row i's frames from
+    ``frame_paths[i]`` (a uint8 (T, H, W, 3) ``.npy``) and int16 PCM at
+    ``target_rate`` from ``wav_paths[i]``, None skipping the modality.
+    ``frames`` (n, t_max, h, w, 3) uint8, ``audio`` (n, s_max) int16 and
+    the int32 lengths are preallocated and C-contiguous. Call ``wait()``
+    before reading them. None when the host runtime is unavailable."""
+    lib = get_host_lib()
+    if lib is None:
+        return None
+    # the C++ threads write through raw pointers with C-order strides
+    for name, arr, dt in (("frames", frames, np.uint8),
+                          ("audio", audio, np.int16),
+                          ("frames_len", frames_len, np.int32),
+                          ("audio_len", audio_len, np.int32)):
+        if arr.dtype != dt or not arr.flags["C_CONTIGUOUS"]:
+            raise ValueError(
+                f"{name} must be C-contiguous {np.dtype(dt).name} "
+                f"(got {arr.dtype}, contiguous={arr.flags['C_CONTIGUOUS']})")
+    n, t_max, h, w, _ = frames.shape
+    if not (len(frame_paths) == len(wav_paths) == n == audio.shape[0]
+            == len(frames_len) == len(audio_len)):
+        raise ValueError("one path of each kind and one buffer row per item")
+
+    def c_paths(paths):
+        arr = (ctypes.c_char_p * n)()
+        keep = [None if p is None else str(p).encode() for p in paths]
+        for i, b in enumerate(keep):
+            arr[i] = b
+        return arr, keep
+
+    fp_arr, fp_keep = c_paths(frame_paths)
+    wp_arr, wp_keep = c_paths(wav_paths)
+    handle = lib.mmqg_pack_submit(
+        fp_arr, wp_arr, n,
+        frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), t_max, h, w,
+        audio.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), audio.shape[1],
+        target_rate,
+        frames_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        audio_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_threads)
+    return PackHandle(lib, handle, (frames, audio, frames_len, audio_len,
+                                    fp_arr, wp_arr, fp_keep, wp_keep))

@@ -153,7 +153,8 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
                          strategy: str = "greedy", max_len: int = 21,
                          k: int = 1, p: float = 0.9,
                          dtype: torch.dtype = torch.bfloat16,
-                         row_seeds=None, return_logits: bool = False):
+                         row_seeds=None, return_logits: bool = False,
+                         global_rows: Optional[Tuple[int, int]] = None):
     """Token generation over encoded memories. Returns tokens (B, max_len)
     int32, PAD after ``<end>``; with ``return_logits`` also the per-step
     logits (B, max_len, V) f32.
@@ -164,7 +165,13 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
     ``row_seeds`` ((B,) int32 identities), row i with
     ``fold_in(fold_in(rng, row_seeds[i]), t)``: a row's draw then depends
     only on (rng, its identity, t), never on the batch it rides in. The
-    noise of all ``max_len`` steps is drawn before the first step."""
+    noise of all ``max_len`` steps is drawn before the first step.
+
+    ``global_rows=(start, total)``: these B rows are rows start..start+B of
+    a batch of ``total`` rows split over a data axis (``parallel``). The
+    per-batch stream then draws (total, n) a step, as one program over the
+    whole batch does (threefry's bits depend on the drawn shape), and these
+    rows take their slice of it; per-row streams need nothing."""
     _check_strategy(strategy)
     dec = model.decoder
     B = mem.enc_text.shape[0]
@@ -182,7 +189,11 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
     noise = None
     if draws:
         n = k if strategy == "topk" else dec.out.w.shape[-1]
-        noise = _step_noise(stream, max_len, B, n)
+        if global_rows is None or stream.dim() == 2:
+            noise = _step_noise(stream, max_len, B, n)
+        else:
+            start, total = global_rows
+            noise = _step_noise(stream, max_len, total, n)[:, start:start + B]
     tok = torch.full((B,), START_ID, dtype=torch.long, device=dev)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     state = dec_state
@@ -308,15 +319,17 @@ def decode_batch(model: qg_model.QGModel, mc: qg_model.ModelConfig,
                  p: float = 0.9, audio_cap: Optional[int] = None,
                  frames_cap: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 row_seeds=None) -> Tensor:
-    """Token ids (B, max_len); PAD after ``<end>``, which is kept. ``rng``
-    and ``row_seeds``: see :func:`decode_from_memories`."""
+                 row_seeds=None,
+                 global_rows: Optional[Tuple[int, int]] = None) -> Tensor:
+    """Token ids (B, max_len); PAD after ``<end>``, which is kept. ``rng``,
+    ``row_seeds`` and ``global_rows``: see :func:`decode_from_memories`."""
     _check_strategy(strategy)
     mem, dec_state = encode(model, mc, batch, audio_cap=audio_cap,
                             frames_cap=frames_cap, dtype=dtype)
     return decode_from_memories(model, mem, dec_state, rng,
                                 strategy=strategy, max_len=max_len, k=k, p=p,
-                                dtype=dtype, row_seeds=row_seeds)
+                                dtype=dtype, row_seeds=row_seeds,
+                                global_rows=global_rows)
 
 
 def beam_decode_batch(model: qg_model.QGModel, mc: qg_model.ModelConfig,

@@ -29,8 +29,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from mmqg_tpu_torch.parallel.multihost import all_reduce_sum
 
 Tensor = torch.Tensor
 State = Tuple[Tensor, Tensor]
@@ -233,40 +236,74 @@ def affine(x: Tensor, a: Tensor, b: Tensor, relu: bool = False) -> Tensor:
     return y.relu_() if relu else y
 
 
+def _group_sum(t: Tensor, group) -> Tensor:
+    """``t`` summed over the processes of ``group`` (in place, no autograd);
+    ``t`` itself without a group."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
 class _BatchNormAll(torch.autograd.Function):
     """Batchnorm over every position of channel-last ``x`` with batch
     statistics, optionally followed by a ReLU: returns (y, mean, biased
-    var), y in float32 (float64 for float64 ``x``). The backward is the
-    batchnorm gradient from ``x`` as it came in and the per-channel mean
-    and 1 / std, so a (B, T, H, W, C) activation is kept once, in its own
-    dtype, where autograd through the same arithmetic keeps three float32
-    intermediates of its size."""
+    var, the number of positions), y in float32 (float64 for float64
+    ``x``). The backward is the batchnorm gradient from ``x`` as it came
+    in and the per-channel mean and 1 / std, so a (B, T, H, W, C)
+    activation is kept once, in its own dtype, where autograd through the
+    same arithmetic keeps three float32 intermediates of its size.
+
+    With a process ``group`` (data-parallel training) the statistics are
+    those of every process's positions together: the sum and the count,
+    then the centred sum of squares, are all-reduced before the
+    normalisation, as one program over the global batch computes them.
+    The backward all-reduces the two per-channel sums the input gradient
+    needs; the scale and bias gradients stay this process's share (the
+    step all-reduces every parameter gradient)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, relu: bool):
+    def forward(ctx, x, scale, bias, eps: float, relu: bool, group=None):
         xf = _f32_up(x)
         axes = tuple(range(x.dim() - 1))
-        var, mean = torch.var_mean(xf, dim=axes, correction=0)
+        local = x.numel() // x.shape[-1]
+        if group is None:
+            var, mean = torch.var_mean(xf, dim=axes, correction=0)
+            n = torch.tensor(float(local), dtype=xf.dtype, device=x.device)
+            ctx.n = local
+        else:
+            sums = _group_sum(torch.cat([
+                xf.sum(dim=axes),
+                torch.full((1,), float(local), dtype=xf.dtype,
+                           device=x.device)]), group)
+            n = sums[-1]
+            mean = sums[:-1] / n
+            var = _group_sum(((xf - mean) ** 2).sum(dim=axes), group) / n
+            ctx.n = n
         rstd = torch.rsqrt(var + eps)
         y = affine(xf, rstd * scale, bias - mean * rstd * scale, relu)
         ctx.save_for_backward(x, mean, rstd, scale, bias)
         ctx.relu = relu
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
 
     @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
+    def backward(ctx, gy, _gmean, _gvar, _gn):
         x, mean, rstd, scale, bias = ctx.saved_tensors
+        n = ctx.n
         axes = tuple(range(x.dim() - 1))
         xhat = (_f32_up(x) - mean) * rstd
         if ctx.relu:
             gy = torch.where(xhat * scale + bias > 0, gy, 0.0)
         gbias = gy.sum(dim=axes)
         gscale = (gy * xhat).sum(dim=axes)
-        n = x.numel() // x.shape[-1]
-        gx = (gy * scale - (gbias * scale) / n
-              - xhat * ((gscale * scale) / n)) * rstd
-        return gx.to(x.dtype), gscale, gbias, None, None
+        gb, gs = gbias, gscale
+        if ctx.group is not None:
+            gb, gs = _group_sum(torch.cat([gbias, gscale]),
+                                ctx.group).chunk(2)
+        gx = (gy * scale - (gb * scale) / n
+              - xhat * ((gs * scale) / n)) * rstd
+        return gx.to(x.dtype), gscale, gbias, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -280,6 +317,16 @@ class BatchNorm(nn.Module):
         # updates applied to the running stats (the JAX state's "count")
         self.register_buffer("count", torch.zeros((), device=mean.device)
                              if count is None else count.reshape(()))
+        # data-parallel training: the torch.distributed group whose
+        # processes' batches the train statistics cover (None: this batch)
+        self.process_group = None
+
+    def _global_sum(self, t: Tensor) -> Tensor:
+        """``t`` summed over ``process_group``, differentiably; ``t``
+        itself without a group."""
+        if self.process_group is None:
+            return t
+        return all_reduce_sum(t, self.process_group)
 
     def forward(self, x: Tensor, eps: float = 1e-5) -> Tensor:
         """Eval batchnorm on channel-last ``x``: f32 maths (f64 for f64
@@ -294,13 +341,20 @@ class BatchNorm(nn.Module):
         statistics of the rows where ``mask (N,)`` is set
         (``video_encoder.cnn_features(train=True)``): normalise with the
         biased variance; the new running variance takes the unbiased one,
-        n = valid rows x H x W. Returns (y in ``x.dtype``, the new running
-        state, detached -- the buffers are not touched)."""
+        n = valid rows x H x W. With a ``process_group`` the statistics are
+        those of every process's valid frames (two differentiable
+        all-reduces). Returns (y in ``x.dtype``, the new running state,
+        detached -- the buffers are not touched)."""
         xf = x.float()
         m = mask.to(torch.float32)[:, None, None, None]
-        denom = torch.clamp(m.sum() * x.shape[1] * x.shape[2], min=1.0)
-        mean = (xf * m).sum(dim=(0, 1, 2)) / denom
-        var = (((xf - mean) ** 2) * m).sum(dim=(0, 1, 2)) / denom
+        # with a process group: every process's valid frames together
+        sums = self._global_sum(torch.cat([
+            (xf * m).sum(dim=(0, 1, 2)),
+            (m.sum() * x.shape[1] * x.shape[2])[None]]))
+        denom = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / denom
+        var = self._global_sum(
+            (((xf - mean) ** 2) * m).sum(dim=(0, 1, 2))) / denom
         with torch.no_grad():
             unbiased = var * (denom / torch.clamp(denom - 1.0, min=1.0))
             state = {"mean": (1 - _BN_MOMENTUM) * self.mean
@@ -322,15 +376,20 @@ class BatchNorm(nn.Module):
         float32, float64 for float64 ``x``; the new running state,
         detached). The backward keeps ``x`` as it came (e.g. a bf16 conv
         output) and the per-channel statistics, and recomputes the rest
-        (:class:`_BatchNormAll`)."""
-        y, mean, var = _BatchNormAll.apply(x, self.scale, self.bias, eps,
-                                           relu)
-        n = float(x.numel() // x.shape[-1])
+        (:class:`_BatchNormAll`). With a ``process_group`` the positions
+        are every process's."""
+        y, mean, var, n = _BatchNormAll.apply(x, self.scale, self.bias, eps,
+                                              relu, self.process_group)
+        if self.process_group is None:
+            n = float(x.numel() // x.shape[-1])
+            unbias = n / max(n - 1.0, 1.0)
+        else:  # every process's positions: the count stays on the device
+            unbias = n / torch.clamp(n - 1.0, min=1.0)
         with torch.no_grad():
             state = {"mean": (1 - _BN_MOMENTUM) * self.mean
                      + _BN_MOMENTUM * mean,
                      "var": (1 - _BN_MOMENTUM) * self.var
-                     + _BN_MOMENTUM * var * (n / max(n - 1.0, 1.0)),
+                     + _BN_MOMENTUM * var * unbias,
                      "count": self.count + 1}
         return y, state
 

@@ -322,6 +322,15 @@ def load_model_state(model: QGModel, state: Dict) -> None:
                  state["video_enc"])
 
 
+def set_process_group(model: QGModel, group) -> None:
+    """Make every batchnorm of ``model`` take its train statistics over the
+    processes of ``group`` (data-parallel training: the JAX package's one
+    program over the global batch), or over this batch alone for None."""
+    for m in model.modules():
+        if isinstance(m, L.BatchNorm):
+            m.process_group = group
+
+
 def _video(model: QGModel, mc: ModelConfig, frames: Tensor,
            frames_len: Tensor, *, train: bool, dtype: torch.dtype
            ) -> Tuple[Tensor, Tensor, Dict]:

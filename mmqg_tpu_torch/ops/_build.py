@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -59,6 +60,10 @@ class Build(NamedTuple):
 
 _loaded: Optional[ctypes.CDLL] = None
 _build: Optional[Build] = None
+# the wrappers' launch and route counts are bumped under this lock: a
+# sharded pipeline's dispatch thread (parallel.replicas) launches while the
+# caller's thread, or another pipeline's dispatch thread, may launch too
+COUNT_LOCK = threading.Lock()
 
 
 def _sources():

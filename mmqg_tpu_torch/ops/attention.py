@@ -226,8 +226,9 @@ def trimodal_attention(w_t: Tensor, b: Tensor, q: Tensor, enc_text: Tensor,
             rc = lib.mmqg_trimodal_attention(*ptrs, *shape, bf16, stream)
     _build.check(rc, "mmqg_trimodal_attention"
                  + ("_tiled" if route == "tiled" else ""))
-    trimodal_attention.launches += 1
-    trimodal_attention.routes[route] += 1
+    with _build.COUNT_LOCK:
+        trimodal_attention.launches += 1
+        trimodal_attention.routes[route] += 1
     return ctx_t, ctx_a, ctx_v, {"text": maps[:, :Lt],
                                  "video": maps[:, Lt:Lt + La],
                                  "audio": maps[:, Lt + La:]}

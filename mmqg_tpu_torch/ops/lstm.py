@@ -119,8 +119,9 @@ def lstm_seq(xs: Tensor, wx: Tensor, wh: Tensor, b: Tensor, h0: Tensor,
             c_last.data_ptr(), B, T, In, H, int(dtype == torch.bfloat16),
             rows, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_seq")
-    lstm_seq.launches += 1
-    lstm_seq.routes[_build.route_of(rows)] += 1
+    with _build.COUNT_LOCK:
+        lstm_seq.launches += 1
+        lstm_seq.routes[_build.route_of(rows)] += 1
     return out, h_last, c_last
 
 

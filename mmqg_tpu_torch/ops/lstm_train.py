@@ -154,8 +154,9 @@ def _fwd_kernel(wx, wh, b, xs, h0, c0, dtype, force_route=None):
             B, T, In, H, int(dtype == torch.bfloat16), rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_train_fwd")
-    lstm_layer_train.fwd_launches += 1
-    lstm_layer_train.fwd_routes[_build.route_of(rows)] += 1
+    with _build.COUNT_LOCK:
+        lstm_layer_train.fwd_launches += 1
+        lstm_layer_train.fwd_routes[_build.route_of(rows)] += 1
     return out, c_seq, gates, hT, cT
 
 
@@ -196,8 +197,9 @@ def _bwd_kernel(wx, wh, xs, h0, c0, out, c_seq, gates, d_out, d_cseq, d_hT,
             dh0.data_ptr(), B, T, In, H, bf16, int(route == "persistent"),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_lstm_train_bwd")
-    lstm_layer_train.bwd_routes[route] += 1
-    lstm_layer_train.bwd_launches += 1
+    with _build.COUNT_LOCK:
+        lstm_layer_train.bwd_routes[route] += 1
+        lstm_layer_train.bwd_launches += 1
     return dwx, dwh, db, dx, dh0, dc
 
 

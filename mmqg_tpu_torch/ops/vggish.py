@@ -140,7 +140,8 @@ def vggish_conv(x: Tensor, w: Tensor, b: Tensor, *, pool: bool,
             Cin, Cout, int(pool), int(bf16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_vggish_conv")
-    vggish_conv.launches += 1
+    with _build.COUNT_LOCK:
+        vggish_conv.launches += 1
     return y
 
 
@@ -255,8 +256,9 @@ def _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=None, sx_next=None,
             Cout, int(pool), int(dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_vggish_conv_s8")
-    conv3x3_relu_int8.launches += 1
-    conv3x3_relu_int8.routes["wgmma"] += 1
+    with _build.COUNT_LOCK:
+        conv3x3_relu_int8.launches += 1
+        conv3x3_relu_int8.routes["wgmma"] += 1
     return y
 
 
@@ -295,8 +297,9 @@ def conv3x3_relu_int8(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
             int(dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_vggish_conv_int8")
-    conv3x3_relu_int8.launches += 1
-    conv3x3_relu_int8.routes["dp4a"] += 1
+    with _build.COUNT_LOCK:
+        conv3x3_relu_int8.launches += 1
+        conv3x3_relu_int8.routes["dp4a"] += 1
     return y
 
 
@@ -367,7 +370,8 @@ def quantize_s8(x: Tensor, scale: Optional[float] = None, *,
             mode, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mmqg_quantize_s8")
-    quantize_s8.launches += 1
+    with _build.COUNT_LOCK:
+        quantize_s8.launches += 1
     return xq, sx
 
 

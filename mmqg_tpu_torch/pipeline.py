@@ -20,6 +20,8 @@ chosen strategy (``decode.py``). The video entry points prepare each
 video's spans on the host first (``_prep_video``: salient frames, span
 audio, subtitle contexts), on a thread pool in ``generate_from_videos``,
 and count the audio route that served each video in ``audio_routes``.
+``shard()`` serves data-parallel: one model replica per device of a mesh,
+each request batch split into row blocks (``parallel.replicas``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ from mmqg_tpu_torch.data.subtitles import (extract_context,
 from mmqg_tpu_torch.data.text_prep import preprocess_text
 from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
+from mmqg_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mmqg_tpu_torch.parallel.replicas import Replicas
 from mmqg_tpu_torch.utils import prng
 from mmqg_tpu_torch.utils.device import resolve_device
 
@@ -106,6 +110,32 @@ class QGPipeline:
         qg_model.check_supported(mc, self.model)
         self.vocab = vocab
         self.index_to_word = index_to_word
+        self.replicas: Optional[Replicas] = None
+
+    # ---------------------------------------------------------- multi-device
+    def shard(self, mesh: Optional[Mesh] = None,
+              devices: Optional[Sequence] = None) -> "QGPipeline":
+        """Serve data-parallel over ``mesh`` (default: ``make_mesh`` over
+        ``devices``, else every visible card): one replica of the model on
+        each device of the data axis (``parallel.replicas``). Every request
+        batch is packed on the host, its AV buckets taken from the whole
+        batch, padded to the data axis and split into contiguous row
+        blocks, each encoded and decoded on its device (enqueued from one
+        dispatch thread); the questions come back in request order. Every
+        strategy and the video entry points go through it, with the
+        questions of the unsharded pipeline. Returns self.
+
+        It buys no questions/s while the decode is host-bound: one
+        interpreter pays every replica's launches (on four H100s a
+        generate() of 37 requests took longer sharded than on one card).
+
+            pipe = QGPipeline.from_checkpoint(config).shard()   # every card
+        """
+        if self.replicas is not None:
+            self.replicas.close()
+        self.replicas = Replicas(self.model, mesh if mesh is not None
+                                 else make_mesh(devices=devices))
+        return self
 
     # ------------------------------------------------------------ loading
     @classmethod
@@ -302,25 +332,34 @@ class QGPipeline:
         fcap = (min(int(frames_cap), mc.av_max_length)
                 if frames_cap is not None
                 else DEC.frames_bucket(mc, host["frames_len"]))
-        batch = self._to_device(host)
         max_len = mc.target_steps - 1
-        if strategy == "beam":
-            toks = DEC.beam_decode_batch(
-                self.model, mc, batch, max_len=max_len,
-                beam_size=beam_size or (Config if self.config is None
-                                        else self.config).beam_size,
-                audio_cap=cap, frames_cap=fcap, dtype=self.dtype)
-        else:
+        beam_size = beam_size or (Config if self.config is None
+                                  else self.config).beam_size
+
+        def run(model, batch, lo: int, total: int) -> torch.Tensor:
+            """Rows lo.. of a batch of ``total`` rows, on ``model``."""
+            if strategy == "beam":
+                return DEC.beam_decode_batch(
+                    model, mc, batch, max_len=max_len, beam_size=beam_size,
+                    audio_cap=cap, frames_cap=fcap, dtype=self.dtype)
             rng = seeds = None
             if strategy != "greedy":
-                rows = host["context_ids"].shape[0]
-                seeds = torch.from_numpy(row_seed_array(rows, n, row_seeds))
-                rng = prng.prng_key(seed, self.device)
-            toks = DEC.decode_batch(self.model, mc, batch, rng,
+                B = batch["context_ids"].shape[0]
+                seeds = torch.from_numpy(
+                    row_seed_array(total, n, row_seeds)[lo:lo + B])
+                rng = prng.prng_key(seed, model.embedding.device)
+            return DEC.decode_batch(model, mc, batch, rng,
                                     strategy=strategy, max_len=max_len,
                                     k=topk, p=top_p, audio_cap=cap,
                                     frames_cap=fcap, dtype=self.dtype,
                                     row_seeds=seeds)
+
+        if self.replicas is not None:
+            # _pack made ``host`` for this call alone
+            gather = self.replicas.map(run, host, owned=True)
+            return lambda: self._to_words(gather())[:n]
+        rows = host["context_ids"].shape[0]
+        toks = run(self.model, self._to_device(host), 0, rows)
         if toks.device.type != "cuda":
             return lambda: self._to_words(toks.numpy())[:n]
         # the tokens' copy to the host and an event go on the stream now, so

@@ -22,9 +22,10 @@ Usage:
   python -m mmqg_tpu_torch.serve -c results/config.json --best -s greedy \\
       --device cpu                                    # the plain versions
 
-Not ported: ``--data-parallel`` (ROADMAP item 19) is accepted and raises
-NotImplementedError; ``--compile-cache`` is left out, since the port has no
-compiled programs to cache.
+``--data-parallel`` serves over every visible card, one model replica each
+(``QGPipeline.shard``); with one card it warns and serves on it.
+``--compile-cache`` is left out, since the port has no compiled programs
+to cache.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from mmqg_tpu_torch.data import wav as wavio
 from mmqg_tpu_torch.data.subtitles import (extract_context,
                                            parse_subtitle_file, span_seconds)
 from mmqg_tpu_torch.data.text_prep import preprocess_text
+from mmqg_tpu_torch.parallel.mesh import data_parallel_mesh, visible_devices
 from mmqg_tpu_torch.pipeline import QGPipeline, count_audio_route
 from mmqg_tpu_torch.utils.device import resolve_device
 
@@ -384,21 +386,27 @@ def main(argv=None) -> None:
                         help="one batch at the wave's largest AV buckets "
                              "instead of one per bucket pair")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported (ROADMAP item 19)")
+                        help="serve over every visible card, one model "
+                             "replica each (QGPipeline.shard); it buys no "
+                             "questions/s while the decode is host-bound: "
+                             "one interpreter pays every replica's "
+                             "launches")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default; the kernels run there) or "
                              "'cpu' (the kernels' plain versions)")
     args = parser.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel: multi-device serving is not ported (ROADMAP "
-            "queue 1, item 19)")
     device = resolve_device(args.device, caller="serve --device")
     config = Config.load(args.config_path)
     alias = "last" if args.last and not args.best else "best"
     pipe = QGPipeline.from_checkpoint(config, alias=alias, mode=args.mode,
                                       decoder=args.decoder, device=device)
+    if args.data_parallel:
+        mesh = data_parallel_mesh(
+            config, visible_devices() if device.type == "cuda" else [device],
+            log=lambda msg: print(msg, file=sys.stderr))
+        if mesh is not None:
+            pipe.shard(mesh)
     print(f"ready alias={alias} strategy={args.strategy} "
           f"max_batch={args.max_batch} device={device}", file=sys.stderr,
           flush=True)

@@ -324,3 +324,29 @@ def test_video_and_serve_phases_rehearsal_on_cpu(tmp_path):
                                         dtype=torch.float32)
     assert loaded.vocab == vocab and loaded.mc == mc
     assert loaded.generate(["wabc"]) == pipe.generate(["wabc"])
+
+
+def test_dp_phase_rehearsal_on_cpu(monkeypatch):
+    """Phase 17's driving at tiny widths on the CPU: the sharded pipeline
+    over two replicas gives the unsharded tokens for every strategy and
+    the per-batch stream (the launch checks need the card: no launch is
+    counted here), and one process's train step reports what the ranks
+    are compared by."""
+    mc, params, state, i2w = _tiny_train_model()
+    vocab = {w: int(i) for i, w in i2w.items()}
+    model = (mc, params, state, vocab, i2w)
+    monkeypatch.setattr(chip_smoke, "check_dp_launches", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "DP_REQUESTS", 5)   # 8 rows
+    monkeypatch.setattr(chip_smoke, "DP_LARGE", 9)
+    monkeypatch.setattr(chip_smoke, "DP_TRAIN_B", 4)
+    out = chip_smoke._dp_serving("cpu", model, "cpu")
+    assert out["replicas"] == 2 and set(out["launches"].values()) == {0}
+    assert out["generate_ms"][9].keys() == {"unsharded", "sharded"}
+    host, caps = chip_smoke._dp_batch(mc, i2w)
+    half = chip_smoke.DP_TRAIN_B // 2
+    assert host["frames_len"][half:].max() <= chip_smoke.DP_SHORT_FRAMES
+    step = chip_smoke._dp_step((params, state), mc, host, caps, None, "cpu")
+    assert np.isfinite(step["loss"]) and step["differ"] == 0.0
+    assert set(step) >= {"grads", "params", "launches", "fwd_routes",
+                         "bwd_routes", "step_ms", "allreduce_ms", "grad_mb"}
+    assert step["launches"]["lstm_train_fwd"] == 0

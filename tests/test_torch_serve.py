@@ -398,15 +398,17 @@ def test_serve_as_a_process_on_the_cpu(saved, media):
 @pytest.mark.parametrize("argv,error,match", [
     ([], RuntimeError, "no CUDA device"),
     (["--device", "cuda:0"], RuntimeError, "no CUDA device"),
-    (["--device", "cpu", "--data-parallel"], NotImplementedError, "item 19"),
+    (["--device", "cpu", "--mode", "text", "--data-parallel"], None,
+     "only one device is visible"),
     (["--device", "cpu", "--mode", "text"], None, "ready alias=best"),
     (["--device", "cpu", "--decoder", "non_attn"], ValueError,
      "decoder='non_attn'"),
 ])
 def test_main_needs_the_card_unless_asked_and_refuses_what_is_not_ported(
         saved, argv, error, match, monkeypatch, capsys):
-    """Without --device the daemon needs the card; --data-parallel is not
-    ported. Every mode and decoder is: --mode text serves the tri-modal
+    """Without --device the daemon needs the card; --data-parallel with
+    one device warns and serves on it. Every mode and decoder is ported:
+    --mode text serves the tri-modal
     checkpoint's text encoder and decoder (the answers of the port's text
     pipeline, whose JAX parity is checked here in f32 too), and --decoder
     non_attn refuses parameters of the attention decoder."""
