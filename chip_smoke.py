@@ -141,6 +141,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             --dry-run`` on the card: the checkpoint restores through
             Trainer.resume and holds the stand-in VGGish's weights
 
+19. train_features  the training path's single-axis features at the
+            flagship's full width, bf16, global batch 32: two ranks (NCCL
+            over two cards where two are visible, else gloo on cuda:0)
+            take one f32 step each plain (all-reduce), ZeRO-1 and FSDP
+            from the same weights (Adam with a clip): the sharded states,
+            gathered, held to the plain one's (every leaf within a stated
+            share of its max), K4 4x each way a step, persistent; then
+            bf16 steps of the three in turns (walls, peak memory above
+            the resident state), the optimizer-state and parameter bytes
+            each rank holds between steps against the rule's, and the
+            all-reduce, reduce-scatter and all-gather alone. One Trainer
+            epoch with profile_dir (K4 launches counted, the trace of the
+            warm step read back for K4's forward and backward kernels by
+            name) and validate() (K1 4x, K2 22x, the int8 conv and
+            quantize_s8 5x). The trained state saved to msgpack
+            synchronously and asynchronously in turns (the caller's
+            blocked time, equal bytes, a load round trip); the orbax
+            backend where tensorstore imports, else its ImportError
+
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
 bf16 cuDNN tower in turns (int8, bf16, bf16, int8). Phase 6 also compares
@@ -153,8 +172,10 @@ design, launches on its path, max |kernel - plain|, its ms, the plain
 version's, its bound on the H100 and what bounds it, and one library call's
 ms where one computes the same function); the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
-any result. It imports nothing of JAX and nothing of the JAX package
-``mmqg_tpu``, and checks at the end that no such module was loaded.
+any result. It imports nothing of JAX, flax, optax or orbax and nothing of
+the JAX package ``mmqg_tpu``, and checks at the end that no such module
+was loaded (tensorstore, which the orbax backend writes with, imports no
+JAX).
 
     python3 chip_smoke.py --dp-clis
 
@@ -167,12 +188,14 @@ visible card on a corpus it writes at the flagship's shapes: ``train
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3421,6 +3444,38 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _spawn_ranks(what: str, target, world: int, backend: str, device: str,
+                 inputs: Path, tmp: Path, timeout: float) -> list:
+    """Run ``target(rank, world, port, backend, device, inputs, result)``
+    in ``world`` spawned processes; their torch.save'd results, in rank
+    order. A rank that fails or outlives ``timeout`` fails the phase; no
+    process outlives this call."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = [tmp / f"rank{r}.pt" for r in range(world)]
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, backend,
+                                              device, str(inputs),
+                                              str(results[r])))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        deadline = time.time() + timeout
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.time()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{what}: ranks exited with {codes}")
+    return [torch.load(r, weights_only=False) for r in results]
+
+
 def _nccl_world_one(grad_mb: float) -> float:
     """An NCCL group of one rank on cuda:0: one all-reduce checked, then
     a gradient-sized all-reduce timed (ms)."""
@@ -3454,8 +3509,6 @@ def _dp_training(card: str, model, device: str) -> dict:
     """Two ranks' data-parallel train step (gloo on cuda:0 with one card,
     NCCL over two cards with more) against one process's step on the same
     DP_TRAIN_B rows, f32, at full width."""
-    import multiprocessing
-
     from mmqg_tpu_torch import checkpoint as ckpt_io
 
     mc, params, state, vocab, i2w = model
@@ -3480,28 +3533,8 @@ def _dp_training(card: str, model, device: str) -> dict:
             "mc": json.dumps(mc._asdict())}))
         if device == "cuda":
             torch.cuda.empty_cache()    # the ranks share the card
-        ctx = multiprocessing.get_context("spawn")
-        port = _free_port()
-        results = [Path(tmp) / f"rank{r}.pt" for r in range(world)]
-        procs = [ctx.Process(target=dp_rank, args=(r, world, port, backend,
-                                                   device, str(inputs),
-                                                   str(results[r])))
-                 for r in range(world)]
-        for proc in procs:
-            proc.start()
-        try:
-            deadline = time.time() + DP_TIMEOUT
-            for proc in procs:
-                proc.join(max(1.0, deadline - time.time()))
-        finally:
-            for proc in procs:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join()
-        codes = [proc.exitcode for proc in procs]
-        if codes != [0] * world:
-            raise AssertionError(f"dp: train ranks exited with {codes}")
-        ranks = [torch.load(r, weights_only=False) for r in results]
+        ranks = _spawn_ranks("dp: train", dp_rank, world, backend, device,
+                             inputs, Path(tmp), DP_TIMEOUT)
     names = list(_leaf_names(qg_model.param_tree(params_from_numpy(
         params, state))))
     for r, out in enumerate(ranks):
@@ -4196,6 +4229,507 @@ def phase_offline(card: str, model, device: str = "cuda") -> dict:
             "bridges": bridges, "convert": convert, "wall_s": wall}
 
 
+# --------------------------------------------------------- train features
+
+# Phase 19: ZeRO-1 and FSDP over two ranks, a profiled Trainer epoch and
+# the checkpoint writer, at the flagship's full width
+FEATURES_B = 32           # the global batch: 16 rows a rank
+FEATURES_WORLD = 2
+FEATURES_CLIP = 1.0       # Adam with a global-norm clip, as users run it
+FEATURES_MODES = ("plain", "zero1", "fsdp")
+# the sharded f32 step's state (parameters, moments, counts, batchnorm
+# statistics) against the plain step's, each leaf's largest difference as
+# a share of its largest value: the update is elementwise on the slices
+# and the gradients are the same sums, so they differ by the clip's norm
+# at most (summed in another order). The f32 steps run cuDNN's
+# deterministic algorithms: its default weight-gradient algorithms sum in
+# an order that varies from run to run (a plain step repeated differed by
+# 7.15e-6 of the video conv0 moments' max on an H100), and a second plain
+# step, printed, witnesses that the repeat now gives the same state.
+FEATURES_RTOL = 1e-6
+FEATURES_F32 = (("plain", "plain"), ("repeat", "plain"), ("zero1", "zero1"),
+                ("fsdp", "fsdp"))
+FEATURES_TIMEOUT = 600    # seconds a rank may take before the phase fails
+FEATURES_TRAIN_BATCHES = 4
+
+
+def _state_on_device(ts) -> dict:
+    """The whole train state as tensors on the model's device: the
+    parameters (gathered under FSDP), the optimizer state (gathered under
+    ZeRO-1) and the batchnorm statistics, copies."""
+    def copy(tree):
+        return tree_map(lambda x: x.detach().clone(), tree)
+    shards = ts.shards
+    opt = (shards.full_opt_state(ts.opt_state) if shards is not None
+           else copy(ts.opt_state))
+    with shards.gathered() if shards is not None else contextlib.nullcontext():
+        params = copy(qg_model.param_tree(ts.model))
+    return {"params": params, "opt_state": opt,
+            "model_state": copy(qg_model.model_state(ts.model))}
+
+
+def _worst_share(got: dict, ref: dict) -> tuple:
+    """(share, leaf): the largest difference of a leaf of ``got`` from
+    ``ref`` as a share of the leaf's largest |value| in ``ref``."""
+    worst = (0.0, "")
+    for name, (a, b) in zip(_leaf_names(ref), zip(tree_leaves(got),
+                                                  tree_leaves(ref))):
+        scale = max(float(b.detach().abs().max()), 1e-30) if b.numel() \
+            else 1.0
+        diff = float((a.double() - b.double()).abs().max()) if b.numel() \
+            else 0.0
+        worst = max(worst, (diff / scale, name))
+    return worst
+
+
+def _timed(fn, device: str, n: int = 3) -> float:
+    """Median wall ms of ``fn()`` over ``n`` runs, each synchronised."""
+    walls = []
+    for _ in range(n):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _features_steps(model_np, mc, host, caps, group, device: str) -> dict:
+    """One rank of phase 19's steps: one f32 step of each mode from the
+    same weights, the sharded ones' whole states held to the plain one's;
+    then bf16 steps of the three in turns (walls, peak memory), the bytes
+    each holds between steps against the rule's, and the collectives'
+    times."""
+    from mmqg_tpu_torch.parallel import multihost, pad_batch, row_block, zero
+    from mmqg_tpu_torch.parallel.mesh import fsdp_shardings, zero1_shardings
+
+    params, state = model_np
+    rank, world = multihost.world(group)
+    rows = pad_batch(host, world)
+    lo, hi = row_block(rank, world, len(rows["valid"]))
+    batch = to_device({k: v[lo:hi] for k, v in rows.items()}, device)
+    opt = make_optimizer(train_config(FEATURES_B,
+                                      grad_clip_norm=FEATURES_CLIP))
+
+    def fresh(mode: str, dtype):
+        model = params_from_numpy(params, state, device, trainable=True)
+        qg_model.set_process_group(model, group)
+        ts = TrainState(model, opt.init(qg_model.param_tree(model)))
+        if mode != "plain":
+            zero.shard(ts, group, fsdp=mode == "fsdp")
+        return ts, make_train_step(mc, opt, dtype=dtype, process_group=group,
+                                   zero1=mode == "zero1",
+                                   fsdp=mode == "fsdp")
+
+    out = {"rank": rank, "world": world, "rows": hi - lo, "f32": {}}
+    ref = None
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    for label, mode in FEATURES_F32:
+        ts, step = fresh(mode, torch.float32)
+        _reset_launches()
+        ts, m = step(ts, batch, None, **caps)
+        _sync(device)
+        got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "launches": _launches(),
+               "fwd_routes": dict(lstm_layer_train.fwd_routes),
+               "bwd_routes": dict(lstm_layer_train.bwd_routes)}
+        whole = _state_on_device(ts)
+        if ref is None:
+            ref = whole
+            full = {"opt_state": zero.rule_bytes(
+                        ts.opt_state, zero1_shardings(ts.opt_state, 1), 1),
+                    "params": zero.rule_bytes(
+                        qg_model.param_tree(ts.model),
+                        fsdp_shardings(qg_model.param_tree(ts.model), 1), 1)}
+            share = {"opt_state": zero.rule_bytes(
+                        ts.opt_state, zero1_shardings(ts.opt_state, world),
+                        world),
+                     "params": zero.rule_bytes(
+                        qg_model.param_tree(ts.model), fsdp_shardings(
+                            qg_model.param_tree(ts.model), world), world)}
+        else:
+            got["worst"] = _worst_share(whole, ref)
+            if ts.shards is not None:
+                got["split_leaves"] = len(ts.shards.split)
+                got["leaves"] = len(ts.shards.param_dims)
+            del whole
+        out["f32"][label] = got
+        del ts, step
+    del ref
+    cudnn.deterministic, cudnn.benchmark = saved
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["rule_bytes"] = {"plain": full,
+                         "zero1": {"opt_state": share["opt_state"],
+                                   "params": full["params"]},
+                         "fsdp": share}
+
+    states = {mode: fresh(mode, torch.bfloat16) for mode in FEATURES_MODES}
+    for ts, step in states.values():          # warm-up: plans, caches
+        step(ts, batch, None, **caps)
+    _sync(device)
+    out["held"] = {mode: zero.held_bytes(ts)
+                   for mode, (ts, _) in states.items()}
+    walls = {mode: [] for mode in FEATURES_MODES}
+    peaks = {mode: [] for mode in FEATURES_MODES}
+    for mode in FEATURES_MODES + FEATURES_MODES[::-1]:
+        ts, step = states[mode]
+        _sync(device)
+        if device == "cuda":
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = step(ts, batch, None, **caps)
+        _sync(device)
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+        if device == "cuda":
+            peaks[mode].append((torch.cuda.max_memory_allocated() - base)
+                               / 2 ** 20)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"train_features: {mode} bf16 loss "
+                                 f"{float(m['loss'])}")
+    out["step_ms"] = walls
+    out["step_peak_mb"] = peaks
+    if device == "cuda":
+        out["max_memory_allocated_mb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+    # the collectives of one step, alone: the plain step's all-reduce of
+    # every gradient, ZeRO-1's reduce-scatter of the split leaves' and
+    # all-gather of their updated slices
+    shards = states["zero1"][0].shards
+    split = sum(p.numel() for _, p in shards.split)
+    every = sum(p.numel() for p in tree_leaves(shards.params))
+    flat = torch.ones(split, device=device)
+    grads = [torch.ones(every, device=device)]
+    out["collective_ms"] = {
+        "all_reduce": _timed(lambda: multihost.all_reduce_flat(grads, group),
+                             device),
+        "reduce_scatter": _timed(
+            lambda: multihost.reduce_scatter_flat(flat, group), device),
+        "all_gather": _timed(lambda: multihost.all_gather_flat(
+            flat[:split // world], group), device)}
+    out["collective_mb"] = {"all_reduce": every * 4 / 2 ** 20,
+                            "reduce_scatter": split * 4 / 2 ** 20,
+                            "all_gather": split * 4 / 2 ** 20}
+    out["whole_leaves"] = [("/".join(map(str, path)), tuple(p.shape))
+                           for path, p in zero._items(shards.params)
+                           if shards.param_dims[path] is None]
+    return out
+
+
+def features_rank(rank: int, world: int, port: int, backend: str,
+                  device: str, inputs: str, result: str) -> None:
+    """One rank of phase 19's sharded steps (a spawned process)."""
+    import torch.distributed as dist
+
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+    from mmqg_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = TF32
+    torch.backends.cudnn.allow_tf32 = TF32
+    dev = torch.device(device)
+    if device == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:       # rehearsed on the CPU: the ranks share its cores
+        torch.set_num_threads(1)
+    multihost.initialize_multihost(f"localhost:{port}", world, rank,
+                                   device=dev, backend=backend,
+                                   timeout_s=FEATURES_TIMEOUT)
+    print(f"train_features: rank {rank} group backend {dist.get_backend()} "
+          f"world {dist.get_world_size()} on {dev}\n", end="", flush=True)
+    blob = ckpt_io.msgpack_restore(Path(inputs).read_bytes())
+    mc = ModelConfig(**json.loads(blob["mc"]))
+    host = {k: np.array(v) for k, v in blob["host"].items()}
+    out = _features_steps((blob["params"], blob["model_state"]), mc, host,
+                          {k: int(v) for k, v in blob["caps"].items()},
+                          dist.group.WORLD, device)
+    torch.save(out, result)
+    dist.destroy_process_group()
+
+
+def _features_ranks(card: str, model, device: str) -> dict:
+    """Phase 19's sharded steps over two ranks (NCCL over two cards where
+    two are visible, else two gloo ranks on cuda:0), checked."""
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+
+    mc, params, state, vocab, i2w = model
+    host = batch_arrays(SyntheticCorpus(mc, i2w, 1, FEATURES_B, SEED + 12,
+                                        max_audio_s=8).batch(0))
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, host["frames_len"]))
+    backend = ("nccl" if device == "cuda" and torch.cuda.device_count() > 1
+               else "gloo")
+    world = FEATURES_WORLD
+    with tempfile.TemporaryDirectory(prefix="mmqg_features_") as tmp:
+        inputs = Path(tmp) / "inputs.msgpack"
+        inputs.write_bytes(ckpt_io.msgpack_serialize({
+            "params": params, "model_state": state, "host": host,
+            "caps": {k: np.int64(v) for k, v in caps.items()},
+            "mc": json.dumps(mc._asdict())}))
+        if device == "cuda":
+            torch.cuda.empty_cache()        # the ranks may share the card
+        ranks = _spawn_ranks("train_features", features_rank, world,
+                             backend, device, inputs, Path(tmp),
+                             FEATURES_TIMEOUT)
+    log(f"train_features: batch {FEATURES_B} ({FEATURES_B // world} rows a "
+        f"rank), Adam lr 1e-4, clip {FEATURES_CLIP}, caps {caps}; "
+        f"{backend} over {world} ranks"
+        + (" on one card (the split and the collectives, not scaling)"
+           if backend == "gloo" and device == "cuda" else ""))
+    want_k4 = {"persistent": mc.text_layers + 1, "per_step": 0}
+    launches = {mode: {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
+                for mode in FEATURES_MODES}
+    for out in ranks:
+        r = out["rank"]
+        plain_loss = out["f32"]["plain"]["loss"]
+        for label, mode in FEATURES_F32:
+            got = out["f32"][label]
+            if label in launches:
+                for k in launches[label]:
+                    launches[label][k] += got["launches"][k]
+            line = (f"train_features: rank {r} f32 {label}: loss "
+                    f"{got['loss']:.6f}, grad norm {got['grad_norm']:.4f}, "
+                    f"K4 routes fwd {got['fwd_routes']} bwd "
+                    f"{got['bwd_routes']}")
+            if label != "plain":
+                share, leaf = got["worst"]
+                line += (f"; vs plain: loss {got['loss'] - plain_loss:+.2e}"
+                         f", worst leaf {leaf} {share:.2e} of its max (tol "
+                         f"{FEATURES_RTOL:.0e})")
+            if "split_leaves" in got:
+                line += (f"; {got['split_leaves']} of {got['leaves']} "
+                         "parameter leaves split")
+            log(line + f" [{card}]")
+            if device == "cuda" and (got["fwd_routes"] != want_k4
+                                     or got["bwd_routes"] != want_k4):
+                raise AssertionError(f"train_features: rank {r} {label} K4 "
+                                     "routes")
+            if label != "plain" and (
+                    got["worst"][0] > FEATURES_RTOL
+                    or abs(got["loss"] - plain_loss)
+                    > FEATURES_RTOL * abs(plain_loss)):
+                raise AssertionError(f"train_features: rank {r} {label} "
+                                     "differs from the plain step")
+        held, rule = out["held"], out["rule_bytes"]
+        log(f"train_features: rank {r} holds between steps (MiB): " + "; ".join(
+            f"{mode} optimizer state {held[mode]['opt_state'] / 2 ** 20:.1f}"
+            f" (rule {rule[mode]['opt_state'] / 2 ** 20:.1f}), parameters "
+            f"{held[mode]['params'] / 2 ** 20:.1f} (rule "
+            f"{rule[mode]['params'] / 2 ** 20:.1f})"
+            for mode in FEATURES_MODES))
+        if held != rule:
+            raise AssertionError(f"train_features: rank {r} holds {held}, "
+                                 f"the rule gives {rule}")
+        log(f"train_features: rank {r} bf16 step ms in turns: " + ", ".join(
+            f"{mode} " + " / ".join(f"{t:.1f}" for t in out["step_ms"][mode])
+            for mode in FEATURES_MODES)
+            + "; peak above the resident state (MiB): " + ", ".join(
+                f"{mode} " + " / ".join(f"{p:.0f}" for p in
+                                        out["step_peak_mb"][mode])
+                for mode in FEATURES_MODES)
+            + (f"; max_memory_allocated {out['max_memory_allocated_mb']:.0f}"
+               " MiB" if "max_memory_allocated_mb" in out else "")
+            + f" [{card}]")
+        log(f"train_features: rank {r} collectives ms: " + ", ".join(
+            f"{k} {v:.2f} ({out['collective_mb'][k]:.1f} MiB)"
+            for k, v in out["collective_ms"].items()) + f" [{card}]")
+    log(f"train_features: leaves kept whole: {ranks[0]['whole_leaves']}")
+    want = {k: world * (mc.text_layers + 1) for k in launches["plain"]}
+    if device == "cuda" and any(v != want for v in launches.values()):
+        raise AssertionError(f"train_features: K4 launches {launches}")
+    return {"backend": backend, "launches": launches,
+            "step_ms": {m: float(np.median([t for o in ranks
+                                            for t in o["step_ms"][m]]))
+                        for m in FEATURES_MODES},
+            "held_mib": {m: {k: v / 2 ** 20 for k, v in
+                             ranks[0]["held"][m].items()}
+                         for m in FEATURES_MODES},
+            "collective_ms": {k: float(np.median([o["collective_ms"][k]
+                                                  for o in ranks]))
+                              for k in ranks[0]["collective_ms"]},
+            "worst_share": max(o["f32"][m]["worst"][0] for o in ranks
+                               for m in FEATURES_MODES[1:]),
+            "repeat_share": max(o["f32"]["repeat"]["worst"][0]
+                                for o in ranks)}
+
+
+def _trace_kernels(profile_dir: Path) -> dict:
+    """K4's kernel records by direction in the Chrome traces under
+    ``profile_dir`` (the names of K4_PROFILE_KERNELS), and the traced
+    step's wall (its ``train_step`` region, host clock, with the
+    profiler on)."""
+    counts = {part: 0 for part in K4_PROFILE_KERNELS}
+    events, step_ms = 0, None
+    for path in profile_dir.glob("trace_*.json"):
+        for e in json.loads(path.read_text()).get("traceEvents", []):
+            events += 1
+            name = e.get("name", "")
+            if name == "train_step" and e.get("cat") == "user_annotation":
+                step_ms = e.get("dur", 0) / 1e3
+            for part, kernels in K4_PROFILE_KERNELS.items():
+                if e.get("cat") == "kernel" and any(k in name
+                                                    for k in kernels[:2]):
+                    counts[part] += 1
+    return {"events": events, "step_ms": step_ms, **counts}
+
+
+def _features_trainer(card: str, model, root: Path, device: str = "cuda",
+                      n_batches: int = FEATURES_TRAIN_BATCHES) -> dict:
+    """One Trainer epoch with profile_dir at batch 32, bf16; the traced
+    warm step's K4 records by name; validate()."""
+    mc, params, state, vocab, i2w = model
+    B = FEATURES_B
+    train_ds = SyntheticCorpus(mc, i2w, n_batches, B, SEED + 4)
+    val_ds = SyntheticCorpus(mc, i2w, 1, B, SEED + 5)
+    trace_dir = root / "trace"
+    trainer = Trainer(train_config(B), mc, params["embedding"]["table"],
+                      train_ds, val_ds, device=device, log_fn=log,
+                      profile_dir=trace_dir)
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss = trainer.run_epoch(0)
+    _sync(device)
+    epoch_s = time.perf_counter() - t0
+    launches = _launches()
+    want = dict(ZERO_LAUNCHES,
+                lstm_train_fwd=(mc.text_layers + 1) * n_batches,
+                lstm_train_bwd=(mc.text_layers + 1) * n_batches)
+    traced = _trace_kernels(trace_dir) if trainer._profiled else {}
+    log(f"train_features: Trainer epoch with profile_dir, {n_batches} steps "
+        f"of {B}, bf16: loss {loss:.4f}, {epoch_s * 1e3:.1f} ms with the "
+        f"traced step and the trace's export; launched {launches} (want "
+        f"{want}); traced a warm step: {trainer._profiled}, its trace "
+        f"{traced} [{card}]")
+    if device == "cuda":
+        if launches != want:
+            raise AssertionError(f"train_features: epoch launches {launches}")
+        check_routes("train_features: K4 forward", lstm_layer_train.fwd_routes,
+                     want["lstm_train_fwd"])
+        check_routes("train_features: K4 backward",
+                     lstm_layer_train.bwd_routes, want["lstm_train_bwd"])
+        if not trainer._profiled or not (traced["forward"]
+                                         and traced["backward"]):
+            raise AssertionError(f"train_features: the trace of a warm step "
+                                 f"holds no K4 records by name: {traced}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"train_features: epoch loss {loss}")
+    _reset_launches()
+    val = trainer.validate()
+    _sync(device)
+    val_launches = _launches()
+    val_want = dict(ZERO_LAUNCHES, lstm_seq=mc.text_layers + 1,
+                    trimodal_attention=mc.target_steps,
+                    vggish_conv_int8=len(V.POOLS), quantize_s8=len(V.POOLS))
+    log(f"train_features: validate() launched {val_launches} (want "
+        f"{val_want}), loss {val['loss']:.4f} [{card}]")
+    if device == "cuda" and val_launches != val_want:
+        raise AssertionError(f"train_features: validate launches "
+                             f"{val_launches}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return {"trainer": trainer, "launches": launches,
+            "validate_launches": val_launches, "traced": traced,
+            "epoch_ms": epoch_s * 1e3}
+
+
+def _features_checkpoints(card: str, trainer, root: Path) -> dict:
+    """The trained flagship state saved to msgpack synchronously and
+    asynchronously in turns (the time the caller is blocked, the host
+    copy included), equal bytes and a load round trip; the orbax backend
+    where tensorstore imports."""
+    import importlib
+
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+    from mmqg_tpu_torch.compat.from_jax import train_state_to_numpy
+
+    ts = trainer.train_state
+    d = root / "ckpt"
+
+    def host():
+        return train_state_to_numpy(ts.model, ts.opt_state, ts.step)
+
+    blocked = {"sync": [], "async": []}
+    writer_ms = []
+    for kind in ("sync", "async", "async", "sync"):
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint(d, kind, host(), {"epoch": 0},
+                                async_save=kind == "async")
+        blocked[kind].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ckpt_io.wait_for_pending()
+        if kind == "async":
+            writer_ms.append((time.perf_counter() - t0) * 1e3)
+    size = (d / "sync.msgpack").stat().st_size
+    same = (d / "sync.msgpack").read_bytes() == (d / "async.msgpack"
+                                                 ).read_bytes()
+    ref = host()
+    back = ckpt_io.load_checkpoint(d, "async")
+    exact = all(np.array_equal(a, b) for a, b in
+                zip(tree_leaves(back), tree_leaves(ref)))
+    log(f"train_features: msgpack checkpoint {size / 2 ** 20:.1f} MiB; the "
+        f"caller blocked, in turns: sync " + " / ".join(
+            f"{t:.1f}" for t in blocked["sync"]) + " ms, async " + " / ".join(
+            f"{t:.1f}" for t in blocked["async"]) + " ms (then the writer "
+        + " / ".join(f"{t:.1f}" for t in writer_ms) + f" ms); async bytes "
+        f"== sync bytes {same}; load round trip exact {exact} [{card}]")
+    if not (same and exact):
+        raise AssertionError("train_features: asynchronous checkpoint")
+    try:
+        importlib.import_module("tensorstore")
+        have_ts = True
+    except ImportError:
+        have_ts = False
+    out = {"msgpack_mib": size / 2 ** 20,
+           "blocked_ms": {k: float(np.median(v)) for k, v in blocked.items()},
+           "writer_ms": float(np.median(writer_ms)), "tensorstore": have_ts}
+    log(f"train_features: tensorstore imports on this host: {have_ts}")
+    if have_ts:
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint(d, "orbax", ref, backend="orbax")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = ckpt_io.load_checkpoint(d, "orbax")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        exact = all(np.array_equal(a, b) for a, b in
+                    zip(tree_leaves(back), tree_leaves(ref)))
+        log(f"train_features: orbax save {save_ms:.1f} ms, load "
+            f"{load_ms:.1f} ms, every leaf exact {exact} [{card}]")
+        if not exact:
+            raise AssertionError("train_features: orbax round trip")
+        out.update(orbax_save_ms=save_ms, orbax_load_ms=load_ms)
+    else:
+        try:
+            ckpt_io.save_checkpoint(d, "orbax", ref, backend="orbax")
+        except ImportError as e:
+            log(f"train_features: backend='orbax' raised ImportError: {e}")
+        else:
+            raise AssertionError("train_features: orbax without tensorstore "
+                                 "did not raise")
+        if ckpt_io.has_checkpoint(d, "orbax"):
+            raise AssertionError("train_features: orbax wrote a checkpoint "
+                                 "without tensorstore")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_train_features(card: str, model, device: str = "cuda") -> dict:
+    """19. train_features: ZeRO-1/FSDP, a profiled Trainer epoch and the
+    checkpoint writer at the flagship's full width (``device`` "cpu"
+    rehearses it, with the kernels' plain versions)."""
+    t0 = time.perf_counter()
+    ranks = _features_ranks(card, model, device)
+    with tempfile.TemporaryDirectory(prefix="mmqg_features_") as tmp:
+        trained = _features_trainer(card, model, Path(tmp), device)
+        ckpts = _features_checkpoints(card, trained.pop("trainer"),
+                                      Path(tmp))
+    wall = time.perf_counter() - t0
+    log(f"train_features: phase wall {wall:.1f} s")
+    return {"ranks": ranks, "trainer": trained, "checkpoints": ckpts,
+            "wall_s": wall}
+
+
 class Clock:
     """Wall seconds by phase, printed as each ends and summed at the end."""
 
@@ -4255,11 +4789,15 @@ def main() -> None:
     clock.lap("dp")
     offline = phase_offline(dev["card"], model)
     clock.lap("offline")
+    features = phase_train_features(dev["card"], model)
+    clock.lap("train_features")
     log(f"phases: {time.perf_counter() - clock.t0:.1f} s in all")
     loaded = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu")]
+              if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu", "flax",
+                                     "optax", "orbax")]
     if loaded:
-        raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
+        raise AssertionError(f"JAX, flax, optax, orbax or the JAX package "
+                             f"was imported: {loaded}")
     by_config = {name: c["launches"]["greedy"]
                  for name, c in configs["serving"].items()}
     trained = {config_name(CONFIG_CASES[0]): configs["train"]["launches"],
@@ -4270,6 +4808,18 @@ def main() -> None:
         """A kernel's launches in one greedy generate() (one train step)
         of each configuration of phase 16."""
         return {name: counts[kernel] for name, counts in runs.items()}
+
+    def on_features(kernel: str) -> dict:
+        """A kernel's launches on phase 19's paths: the profiled Trainer
+        epoch and its validate() (this process), and one f32 step of each
+        mode over the two ranks (their counters summed)."""
+        out = {"trainer_epoch": features["trainer"]["launches"][kernel],
+               "validate": features["trainer"]["validate_launches"][kernel]}
+        if kernel.startswith("lstm_train"):
+            out["ranks_f32_step"] = {
+                mode: counts[kernel] for mode, counts in
+                features["ranks"]["launches"].items()}
+        return out
 
     def on_offline(kernel: str) -> dict:
         """A kernel's launches on phase 18's paths: the measured epoch on
@@ -4290,6 +4840,7 @@ def main() -> None:
          "launches": launches["lstm_seq"],
          "launches_by_config": per_config("lstm_seq"),
          "launches_offline": on_offline("lstm_seq"),
+         "launches_train_features": on_features("lstm_seq"),
          "launches_dp": dp["serving"]["launches"]["lstm_seq"], **k1},
         {"name": "trimodal_attention", "route": "cuda",
          "design": "blocks of 16 batch rows x 16 positions x 128 memory "
@@ -4300,6 +4851,7 @@ def main() -> None:
          "launches": launches["trimodal_attention"],
          "launches_by_config": per_config("trimodal_attention"),
          "launches_offline": on_offline("trimodal_attention"),
+         "launches_train_features": on_features("trimodal_attention"),
          "launches_dp": dp["serving"]["launches"]["trimodal_attention"],
          **strategies, **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
@@ -4310,6 +4862,7 @@ def main() -> None:
          "launches": train_launches["lstm_train_fwd"],
          "launches_by_config": per_config("lstm_train_fwd", trained),
          "launches_offline": on_offline("lstm_train_fwd"),
+         "launches_train_features": on_features("lstm_train_fwd"),
          "launches_dp": dp["training"]["launches"]["lstm_train_fwd"],
          **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
@@ -4319,6 +4872,7 @@ def main() -> None:
          "launches": train_launches["lstm_train_bwd"],
          "launches_by_config": per_config("lstm_train_bwd", trained),
          "launches_offline": on_offline("lstm_train_bwd"),
+         "launches_train_features": on_features("lstm_train_bwd"),
          "launches_dp": dp["training"]["launches"]["lstm_train_bwd"],
          **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
@@ -4334,6 +4888,7 @@ def main() -> None:
          "launches": launches["vggish_conv_int8"],
          "launches_by_config": per_config("vggish_conv_int8"),
          "launches_offline": on_offline("vggish_conv_int8"),
+         "launches_train_features": on_features("vggish_conv_int8"),
          "launches_dp": dp["serving"]["launches"]["vggish_conv_int8"],
          **int8["conv"]},
         {"name": "quantize_s8", "route": "cuda",
@@ -4344,6 +4899,7 @@ def main() -> None:
          "launches": launches["quantize_s8"],
          "launches_by_config": per_config("quantize_s8"),
          "launches_offline": on_offline("quantize_s8"),
+         "launches_train_features": on_features("quantize_s8"),
          "launches_dp": dp["serving"]["launches"]["quantize_s8"],
          **int8["quant"]}]
     log("offline: " + json.dumps({
@@ -4358,6 +4914,11 @@ def main() -> None:
         "generate_ms": dp["serving"]["generate_ms"],
         "train": {k: v for k, v in dp["training"].items()
                   if k != "launches"}}))
+    log("train_features: " + json.dumps({
+        "ranks": features["ranks"], "epoch_ms": features["trainer"][
+            "epoch_ms"], "traced": features["trainer"]["traced"],
+        "checkpoints": features["checkpoints"],
+        "wall_s": features["wall_s"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -15,7 +15,7 @@ serves off the CPU:
     QGPipeline(...).generate(contexts, frames, audio, strategy="greedy")
     QGPipeline(...).shard()          # data-parallel over every visible card
     python -m mmqg_tpu_torch.train -c config.json [--device cpu]
-    python -m mmqg_tpu_torch.train -c config.json --data-parallel
+    python -m mmqg_tpu_torch.train -c config.json --data-parallel [--zero1|--fsdp]
     python -m mmqg_tpu_torch.prepare -c config.json --stages saliency,glove,text,data
     python -m mmqg_tpu_torch.convert --config config.json --vggish ... [--dry-run]
 
@@ -25,7 +25,8 @@ Layout:
   decode.py         AV buckets, greedy decode_from_memories, decode_batch
   train.py          train and validate steps, Trainer, the training CLI
   optim.py          optax's optimizers and schedules, in optax's state layout
-  checkpoint.py     reads and writes the JAX package's msgpack checkpoints
+  checkpoint.py     reads and writes the JAX package's msgpack and orbax
+                    checkpoints, asynchronously on a writer thread
   config.py         Config with the JAX package's config.json round trip
   prepare.py        the offline prepare CLI: saliency, GloVe, text, data
   convert.py        released VGGish / R(2+1)D-18 weights -> a checkpoint
@@ -33,9 +34,12 @@ Layout:
   data/             vocab, GloVe, splits, WAV reading and writing,
                     subtitles, salient frames and audio, QGDataset
                     batches, the streaming loader and its native pack pool
-  parallel/         data parallelism: the mesh and batch rules, model
-                    replicas for serving, the multi-process runtime
-  utils/            pipelined host loops
+  parallel/         data parallelism: the mesh, batch and ZeRO-1/FSDP
+                    rules, model replicas for serving, the multi-process
+                    runtime, the optimizer state and parameters split
+                    over its processes
+  utils/            pipelined host loops, profiling and NaN debugging,
+                    the corpus audit, plots
   compat/           from_jax: JAX train-state pytree (numpy leaves) <->
                     modules; from_torchvision: r2plus1d_18 weights;
                     from_reference / to_reference: the reference PyTorch

@@ -114,10 +114,16 @@ def train_state_to_numpy(model: QGModel, opt_state: Any,
                          step: int) -> Dict[str, Any]:
     """The JAX train state of ``mmqg_tpu.train.init_train_state``:
     {"params", "model_state", "opt_state", "step" (int32)}, numpy leaves,
-    lists for lists and dicts for NamedTuples (their state-dict form)."""
-    return {"params": tree_to_numpy(qg_model.param_tree(model)),
-            "model_state": tree_to_numpy(qg_model.model_state(model)),
-            "opt_state": tree_to_numpy(opt_state),
+    lists for lists and dicts for NamedTuples (their state-dict form).
+    Every leaf is a host copy of its own, never a view of a live CPU
+    tensor, so later steps cannot change a checkpoint still being
+    written."""
+    def copy(tree):
+        return tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(),
+                        tree)
+    return {"params": copy(qg_model.param_tree(model)),
+            "model_state": copy(qg_model.model_state(model)),
+            "opt_state": copy(opt_state),
             "step": np.asarray(step, np.int32)}
 
 

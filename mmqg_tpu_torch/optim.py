@@ -19,10 +19,17 @@ Counts are int32 0-d tensors; moments are float32 like the parameters. Each
 transform is an (init, update) pair, as in optax; ``update`` computes new
 tensors and never writes in place. :func:`apply_updates` adds the updates
 to the parameters in place.
+
+Every transform is elementwise but the global-norm clip, so the optimizer
+runs unchanged on slices of the leaves (ZeRO-1 and FSDP,
+``parallel/zero.py``): the sharded step computes the norm inside
+:func:`norm_over`, whose function sums every process's slices.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
@@ -69,8 +76,28 @@ def tree_map_with_path(fn: Callable, tree: Tree, path: Tuple = ()) -> Tree:
     return fn(path, tree)
 
 
+_NORM: contextvars.ContextVar = contextvars.ContextVar("global_norm",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def norm_over(norm: Callable[[Tree], Tensor]):
+    """Inside the block, :func:`global_norm` (and so
+    :func:`clip_by_global_norm`) is ``norm(tree)``: the norm of a tree
+    whose leaves are each process's slices of the whole tree's."""
+    token = _NORM.set(norm)
+    try:
+        yield
+    finally:
+        _NORM.reset(token)
+
+
 def global_norm(tree: Tree) -> Tensor:
-    """``optax.global_norm``: the l2 norm of all leaves together."""
+    """``optax.global_norm``: the l2 norm of all leaves together (inside
+    :func:`norm_over`, its function's)."""
+    norm = _NORM.get()
+    if norm is not None:
+        return norm(tree)
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(x * x) for x in leaves))
 

@@ -1,25 +1,31 @@
-"""The device mesh and the batch rules of data parallelism
-(``mmqg_tpu/parallel/mesh.py``, its data axis).
+"""The device mesh, the batch rules of data parallelism and the ZeRO-1/FSDP
+rule of the data axis (``mmqg_tpu/parallel/mesh.py``).
 
 A :class:`Mesh` is a ``(data, model)`` array of ``torch.device``s. The port
 runs the data axis only: one model replica per device of the axis, every
 request batch padded to a multiple of it (:func:`pad_batch`) and cut into
 contiguous row blocks (:func:`row_block`), the first block on the first
-device. A model axis larger than 1 (the tensor-parallel rules, sequence
-parallelism, ZeRO-1/FSDP, GPipe) is ROADMAP item 19b and raises.
+device. :func:`zero1_shardings` and :func:`fsdp_shardings` say which
+dimension of each leaf of the optimizer state or of the parameters is
+split over the data axis (``parallel/zero.py`` holds the slices). A model
+axis larger than 1 (the tensor-parallel rules, sequence parallelism,
+GPipe) is ROADMAP item 19b and raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from mmqg_tpu_torch.optim import tree_map_with_path
+
 AXIS_NAMES = ("data", "model")
 _MODEL_AXIS = ("a model axis larger than 1 (tensor parallelism, sequence "
-               "parallelism, ZeRO-1/FSDP, GPipe) is not ported (ROADMAP "
-               "queue 1, item 19b)")
+               "parallelism, GPipe) is not ported (ROADMAP queue 1, item "
+               "19b)")
 
 
 class Mesh:
@@ -149,3 +155,67 @@ def data_parallel_mesh(config, devices: Sequence, log=print
     mesh = make_mesh(None if shape == (1, 1) else shape, devices=devices)
     log(f"data-parallel over {len(devices)} devices (mesh {mesh.shape})")
     return mesh
+
+
+# ------------------------------------------- ZeRO-1 / FSDP (state over "data")
+
+def _spec_for(path: str, leaf) -> Tuple[Optional[str], ...]:
+    """The JAX package's tensor-parallel partition spec of one leaf, keyed
+    by its tree path ("decoder/attn/w_text"; ``mesh.py::_spec_for``). The
+    port runs no model axis, but the data-axis rule below starts from
+    these specs, so that it splits the dimensions JAX's does."""
+    if not hasattr(leaf, "ndim") or leaf.ndim < 2:
+        return ()
+    if re.search(r"lstm.*(wx|wh)$", path):
+        return (None, "model")
+    if re.search(r"attn/w_", path):
+        return ("model", None)
+    if re.search(r"out.*w", path) or path.endswith("out/w"):
+        return (None, "model")
+    if re.search(r"fc\d?/w$", path):
+        return (None, "model")
+    if leaf.ndim == 4:
+        return (None, None, None, "model")
+    if leaf.ndim == 5:
+        return (None, None, None, None, "model")
+    return ()
+
+
+def _widen_over_data(tree: Any, mesh: Union["Mesh", int]) -> Any:
+    """For each leaf of ``tree`` (dicts and lists of tensors or arrays),
+    the dimension split over the data axis, or None: the first dimension
+    that the tensor-parallel spec leaves free, that divides by the data
+    axis's size dp and is at least dp (JAX's ``_widen_over_data`` on a
+    mesh whose model axis is 1, where the TP spec names only that axis).
+    Scalars (Adam's ``count``), leaves that do not divide and every leaf
+    of a one-device data axis stay whole. ``mesh``: a Mesh or dp."""
+    dp = mesh.dp if isinstance(mesh, Mesh) else int(mesh)
+
+    def widen(path, leaf):
+        if not hasattr(leaf, "ndim") or leaf.ndim < 1 or dp == 1:
+            return None
+        spec = _spec_for("/".join(str(k) for k in path), leaf)
+        spec = tuple(spec) + (None,) * (leaf.ndim - len(spec))
+        for d in range(leaf.ndim):
+            if spec[d] is None and leaf.shape[d] % dp == 0 \
+                    and leaf.shape[d] >= dp:
+                return d
+        return None
+
+    return tree_map_with_path(widen, tree)
+
+
+def zero1_shardings(opt_state: Any, mesh: Union["Mesh", int]) -> Any:
+    """ZeRO-1: the split dimension of each optimizer-state leaf
+    (``mesh.py::zero1_shardings``). Adam's moments are elementwise
+    consumers of the gradient, so each process of the data axis owns 1/dp
+    of every moment; the gradients are reduce-scattered into that layout
+    and the updated parameters all-gathered (``parallel/zero.py``)."""
+    return _widen_over_data(opt_state, mesh)
+
+
+def fsdp_shardings(params: Any, mesh: Union["Mesh", int]) -> Any:
+    """FSDP: the split dimension of each parameter leaf
+    (``mesh.py::fsdp_shardings``), the same rule as ZeRO-1's, so the
+    parameter and moment slices line up leaf for leaf."""
+    return _widen_over_data(params, mesh)

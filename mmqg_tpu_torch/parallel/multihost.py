@@ -175,6 +175,47 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor],
     return out
 
 
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == dist.Backend.NCCL
+
+
+def reduce_scatter_flat(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """This process's block of the elementwise sum over the processes of
+    ``flat`` (1-D, its length a multiple of the group size, block r for
+    rank r): one reduce-scatter on NCCL. gloo gets an all-reduce and keeps
+    the block (not every version of its CUDA path has a reduce-scatter;
+    the sums are the same). ``flat`` itself alone."""
+    rank, size = world(group)
+    if size == 1:
+        return flat
+    n = flat.numel() // size
+    if _nccl(group):
+        out = torch.empty(n, dtype=flat.dtype, device=flat.device)
+        dist.reduce_scatter_tensor(out, flat.contiguous(), group=group)
+        return out
+    flat = flat.clone()
+    dist.all_reduce(flat, group=group)
+    return flat[rank * n:(rank + 1) * n].clone()
+
+
+def all_gather_flat(block: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's ``block`` (1-D, the same length on each), in rank
+    order, as one tensor: one all-gather (on NCCL into one buffer; gloo
+    through the host). ``block`` itself alone."""
+    size = world(group)[1]
+    if size == 1:
+        return block
+    if _nccl(group):
+        out = torch.empty(size * block.numel(), dtype=block.dtype,
+                          device=block.device)
+        dist.all_gather_into_tensor(out, block.contiguous(), group=group)
+        return out
+    host = block.detach().cpu()
+    parts = [torch.empty_like(host) for _ in range(size)]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts).to(block.device)
+
+
 def replicas_differ(tensors: Sequence[torch.Tensor], group=None) -> float:
     """The largest difference between the processes' copies of
     ``tensors`` (max over the processes minus min, elementwise, as one

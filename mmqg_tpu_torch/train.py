@@ -3,6 +3,7 @@
     python -m mmqg_tpu_torch.train -c config.json --epochs 10   # on the card
     python -m mmqg_tpu_torch.train -c config.json --device cpu
     python -m mmqg_tpu_torch.train -c config.json --data-parallel  # all cards
+    python -m mmqg_tpu_torch.train -c config.json --data-parallel --zero1
 
 One train step: ``qg_model.loss_fn`` (train-mode encode, the text and video
 LSTMs through K4, teacher-forced decode) under autograd, in any mode,
@@ -11,16 +12,21 @@ decoder and video backbone (``--mode``, ``--decoder``,
 (optax's Adam/AdamW/SGD, schedules, clipping and the
 ``text_non_trainable`` freeze, in optax's state layout). Validation
 is the greedy-fed CE decode through K1 and K2 plus BLEU. Checkpoints are the
-JAX package's msgpack train state, so each package resumes the other's.
+JAX package's msgpack or orbax train state (``checkpoint_backend``),
+written on a writer thread with ``checkpoint_async``, so each package
+resumes the other's.
 
 Data parallelism (``--data-parallel``, ``--multihost``; ``Trainer``'s
 ``process_group``) runs one process per device, each with its row block of
 every global batch, and all-reduces what one program over the global
 batch would share: the valid count, the batchnorm statistics and the
-gradients. ``--streaming`` reads batches with ``data.streaming``'s pack
-pool. Not ported: the model axis of the mesh (tensor and sequence
-parallelism, ZeRO-1/FSDP; ROADMAP item 19b), ``--profile-dir`` and
-``--nan-debug`` (item 21), orbax and asynchronous checkpoints (item 23);
+gradients. ``--zero1`` splits the optimizer state over the data axis and
+``--fsdp`` the parameters too (``parallel/zero.py``: the gradients
+reduce-scattered, the parameters all-gathered). ``--streaming`` reads
+batches with ``data.streaming``'s pack pool. ``--profile-dir`` traces one
+warm step with ``torch.profiler``; ``--nan-debug`` raises at the first
+non-finite value (``utils/profiling.py``). Not ported: the model axis of
+the mesh (tensor and sequence parallelism, GPipe; ROADMAP item 19b);
 ``--compile-cache`` is left out (nothing is compiled ahead). ``Config``,
 ``QGDataset``, BLEU and the pipelining helper are the port's own copies of
 the JAX package's modules; either package's ``config.json`` loads.
@@ -36,6 +42,7 @@ import socket
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -58,11 +65,12 @@ from mmqg_tpu_torch.data.vocab import START_ID
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.optim import (Transform, apply_updates, global_norm,
                                   learning_rate_schedule, make_optimizer,
-                                  tree_leaves, tree_map)
-from mmqg_tpu_torch.parallel import multihost
+                                  norm_over, tree_leaves, tree_map)
+from mmqg_tpu_torch.parallel import multihost, zero
 from mmqg_tpu_torch.parallel.mesh import (Mesh, pad_batch, padded_rows,
                                           row_block)
 from mmqg_tpu_torch.parallel.multihost import all_reduce_flat
+from mmqg_tpu_torch.utils import profiling
 from mmqg_tpu_torch.utils.device import resolve_device
 from mmqg_tpu_torch.utils.pipelining import pipelined
 
@@ -76,10 +84,14 @@ __all__ = ["TrainState", "Trainer", "batch_arrays", "evaluate_bleu",
 @dataclass
 class TrainState:
     """The model (parameters and batchnorm state), the optimizer state in
-    optax's layout, and the number of optimizer updates taken."""
+    optax's layout, and the number of optimizer updates taken. ``shards``:
+    set when the state is split over a data axis (``parallel.zero``):
+    ``opt_state`` then holds this process's slices, and with FSDP the
+    split parameters are freed between steps."""
     model: qg_model.QGModel
     opt_state: Any
     step: int = 0
+    shards: Optional[zero.Shards] = None
 
 
 def init_train_state(mc: qg_model.ModelConfig, emb_weights,
@@ -118,7 +130,8 @@ StepFn = Callable[..., Tuple[TrainState, Dict[str, Tensor]]]
 
 def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                     dtype: torch.dtype = torch.bfloat16,
-                    accum_steps: int = 1, process_group=None) -> StepFn:
+                    accum_steps: int = 1, process_group=None,
+                    zero1: bool = False, fsdp: bool = False) -> StepFn:
     """``train_step(state, batch, generator, *, audio_cap=None,
     frames_cap=None) -> (state, metrics)``: one optimizer update from
     ``batch`` (tensors on the model's device), in place on ``state``.
@@ -143,8 +156,21 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
     are the global batch's. The model's batchnorms take their statistics
     over the group too (``qg_model.set_process_group``, which the caller
     sets). With accumulation, microbatch i is every process's i-th slice
-    of its block."""
+    of its block.
+
+    ``zero1`` (ZeRO-1) and ``fsdp`` (which implies it), with a process
+    group of more than one: the state is split over the data axis
+    (``parallel.zero.shard``, done here on the first call if the caller
+    has not): the gradients are reduce-scattered into the optimizer
+    state's slices instead of all-reduced, the optimizer updates the
+    slices, and the parameters are all-gathered after the update (ZeRO-1)
+    or at the start of the next step (FSDP). The update equals the
+    all-reduced step's. Without a data axis both are no-ops, as in the
+    JAX package."""
     group = process_group
+    sharded = ((zero1 or fsdp) and group is not None
+               and multihost.world(group)[1] > 1)
+
     def train_step(ts: TrainState, batch: Dict[str, Tensor], generator, *,
                    audio_cap: Optional[int] = None,
                    frames_cap: Optional[int] = None):
@@ -152,6 +178,16 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
         B = batch["target_ids"].shape[0]
         if B % A:
             raise ValueError(f"batch {B} not divisible by accum_steps {A}")
+        if sharded:
+            if ts.shards is None:
+                zero.shard(ts, group, fsdp=fsdp)
+            elif ts.shards.fsdp != fsdp:
+                raise ValueError(f"the state is split with fsdp="
+                                 f"{ts.shards.fsdp}, the step has {fsdp}")
+            ts.shards.gather_params()
+        elif ts.shards is not None:
+            raise ValueError("the state is split over a data axis: make the "
+                             "step with zero1/fsdp and its process group")
         params = qg_model.param_tree(ts.model)
         for p in tree_leaves(params):
             p.grad = None
@@ -189,16 +225,29 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                        "loss_per_token": ce / torch.clamp(ntok, min=1.0)}
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                          else p.grad, params)
-        if group is not None:
-            leaves = []
-            tree_map(leaves.append, grads)
-            summed = iter(all_reduce_flat(leaves, group))
-            grads = tree_map(lambda _: next(summed), grads)
-        updates, ts.opt_state = optimizer.update(grads, ts.opt_state, params)
-        apply_updates(params, updates)
-        metrics["grad_norm"] = global_norm(grads).detach()
+        shards = ts.shards
+        if shards is not None:
+            grads = shards.reduce_scatter(grads)
+            targets = shards.param_slices()
+        else:
+            targets = params
+            if group is not None:
+                leaves = []
+                tree_map(leaves.append, grads)
+                summed = iter(all_reduce_flat(leaves, group))
+                grads = tree_map(lambda _: next(summed), grads)
+        # sharded, the clip's norm and the metric's sum every process's
+        # slices
+        with (norm_over(shards.global_norm) if shards is not None
+              else nullcontext()):
+            updates, ts.opt_state = optimizer.update(grads, ts.opt_state,
+                                                     targets)
+            metrics["grad_norm"] = global_norm(grads).detach()
+        apply_updates(targets, updates)
         for p in tree_leaves(params):
             p.grad = None
+        if shards is not None:
+            shards.publish()
         ts.step += 1
         return ts, metrics
 
@@ -283,14 +332,23 @@ class Trainer:
     each process's rows and gathers them (``to_host``); BLEU is scored on
     the primary. The primary writes checkpoints and ``stats.json``, the
     others wait at a barrier; every process loads on resume. Dropout draws
-    from a generator seeded with (seed, rank). ZeRO-1 and FSDP over the
-    data axis (``config.zero1``/``fsdp``) are ROADMAP item 19b and raise;
-    without a data axis they are no-ops, as in the JAX package."""
+    from a generator seeded with (seed, rank). ``config.zero1`` and
+    ``config.fsdp`` (which implies it) split the optimizer state, and the
+    parameters, over the data axis (``parallel.zero``): ``validate``
+    gathers FSDP's parameters for its duration, ``save`` gathers the whole
+    state on every process before the primary writes (a collective), and
+    ``resume`` keeps each process's slices of the loaded state. Without a
+    data axis they are no-ops, as in the JAX package.
+
+    ``profile_dir``: a ``torch.profiler`` trace (``utils.profiling
+    .trace``) of the first batch whose AV-bucket variant has already run
+    once, so a warm step; the lag-2 backlog is drained first and the loss
+    read inside the trace."""
 
     def __init__(self, config, mc: qg_model.ModelConfig, emb_weights,
                  train_ds: QGDataset, val_ds: QGDataset, *, device="cuda",
                  mesh: Optional[Mesh] = None, process_group=None,
-                 log_fn=print):
+                 log_fn=print, profile_dir=None):
         qg_model.check_supported(mc)
         self.config = config
         self.mc = mc
@@ -316,13 +374,16 @@ class Trainer:
                            dist.group.WORLD if multihost.world()[1] > 1
                            else None)
         self.log = log_fn if self.primary else (lambda *a, **k: None)
+        self.profile_dir = profile_dir
+        self._profiled = False
+        self._steps_used = set()        # AV-bucket variants run once
+        # ZeRO-1 / FSDP: only with a data axis to split over (no-ops
+        # otherwise, so one config serves one and several devices)
+        self.fsdp = bool(getattr(config, "fsdp", False)) and \
+            self.group is not None
+        self.zero1 = (bool(getattr(config, "zero1", False)) or self.fsdp) \
+            and self.group is not None
         if self.group is not None:
-            if getattr(config, "zero1", False) or getattr(config, "fsdp",
-                                                          False):
-                raise NotImplementedError(
-                    "zero1/fsdp: sharding the optimizer state or the "
-                    "parameters over the data axis is not ported (ROADMAP "
-                    "queue 1, item 19b)")
             rows = padded_rows(config.batch_size, self.dp) // self.dp
             if rows % self.accum_steps:
                 raise ValueError(
@@ -337,10 +398,13 @@ class Trainer:
                                             seed=config.seed,
                                             device=self.device)
         qg_model.set_process_group(self.train_state.model, self.group)
+        if self.zero1:
+            zero.shard(self.train_state, self.group, fsdp=self.fsdp)
         self.train_step = make_train_step(mc, self.optimizer,
                                           dtype=self.dtype,
                                           accum_steps=self.accum_steps,
-                                          process_group=self.group)
+                                          process_group=self.group,
+                                          zero1=self.zero1, fsdp=self.fsdp)
         self.av_bucketing = getattr(config, "train_av_bucketing", True)
         self.av_bucket_granularity = int(
             getattr(config, "train_av_bucket_granularity", 8))
@@ -410,16 +474,33 @@ class Trainer:
         for batch in self.train_ds.batches(bs, shuffle=True, rng=rng_np):
             arrays = batch_arrays(batch)
             caps = self.caps_for(arrays)
-            self.train_state, metrics = self.train_step(
-                self.train_state,
-                to_device(self._local_rows(arrays), self.device),
-                self.generator, **caps)
+            variant = tuple(sorted(caps.items()))
+            inputs = to_device(self._local_rows(arrays), self.device)
+            if (self.profile_dir and not self._profiled
+                    and variant in self._steps_used):
+                drain(0)  # the trace holds one step, not the backlog
+                with profiling.trace(self.profile_dir):
+                    with profiling.annotate("train_step"):
+                        self.train_state, metrics = self.train_step(
+                            self.train_state, inputs, self.generator,
+                            **caps)
+                        float(metrics["loss"])  # the device, inside
+                self._profiled = True
+            else:
+                self.train_state, metrics = self.train_step(
+                    self.train_state, inputs, self.generator, **caps)
+            self._steps_used.add(variant)
             pending.append((metrics["loss"], batch.size))
             drain(2)
         drain(0)
         return total / max(n, 1)
 
     def validate(self) -> Dict[str, float]:
+        shards = self.train_state.shards
+        with shards.gathered() if shards is not None else nullcontext():
+            return self._validate()
+
+    def _validate(self) -> Dict[str, float]:
         bs = self.config.eval_batch_size
         loss_sum, n = 0.0, 0
         bleu_sums = {k: 0.0 for k in M.BLEU_WEIGHTS}
@@ -496,6 +577,7 @@ class Trainer:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None
                               else signal.SIG_DFL)
+            ckpt.wait_for_pending()   # queued writes land before return
 
     def _fit_inner(self, epochs: int) -> Tuple[Dict, int]:
         for epoch in range(self.start_epoch, epochs):
@@ -521,22 +603,39 @@ class Trainer:
                                     "msgpack"),
                     async_copy=getattr(self.config, "checkpoint_async",
                                        False), group=self.ckpt_group)
+        if self.profile_dir and not self._profiled:
+            self.log("warning: --profile-dir set but no warm step was "
+                     "traced (every batch hit a fresh AV-bucket variant: "
+                     "too few batches per bucket)")
         self.write_stats()
         return self.epoch_stats, self.best_epoch
 
     # -------------------------------------------------------- persistence
     def save(self, alias: str, epoch: int, *, sync: bool = True) -> None:
         """Write the ``alias`` checkpoint: on the primary only, the other
-        processes waiting until it is published (unless ``sync`` is
-        False)."""
+        processes waiting at a barrier until it is published, or queued
+        with ``checkpoint_async`` (unless ``sync`` is False: the path of a
+        failure, where the other processes may not get here). A state split
+        over the data axis is first gathered on every process (a
+        collective), so after a failure (``sync`` False) it is not saved:
+        ``last`` stays the last completed epoch's."""
+        ts = self.train_state
+        if ts.shards is not None and not sync:
+            self.log("warning: the optimizer state is split over the data "
+                     "axis; after a failure it is not gathered (a "
+                     "collective) and not saved")
+            return
         group = self.ckpt_group if sync else None
         if group is None and not self.primary:
             return
-        ts = self.train_state
+        if ts.shards is not None:
+            host = ts.shards.host_state(ts)
+        else:
+            host = (train_state_to_numpy(ts.model, ts.opt_state, ts.step)
+                    if self.primary else None)
         ckpt.save_checkpoint(
             self.config.checkpoint_dir, alias,
-            train_state_to_numpy(ts.model, ts.opt_state, ts.step)
-            if self.primary else None,
+            host if self.primary else None,
             metadata={"epoch": epoch, "best_val": self.best_val,
                       "best_epoch": self.best_epoch,
                       "mode": self.mc.mode, "n_vocab": self.mc.n_vocab},
@@ -545,15 +644,22 @@ class Trainer:
             group=group)
 
     def resume(self, alias: str = "last") -> bool:
-        """Restore a msgpack checkpoint (the port's or the JAX package's)
-        and its epoch, best validation loss and stats history. False when
-        there is none."""
+        """Restore a checkpoint (msgpack or orbax, the port's or the JAX
+        package's) and its epoch, best validation loss and stats history.
+        False when there is none. Every process calls it: the primary's
+        queued writes land first (``wait_for_pending``'s barrier), and a
+        state split over the data axis keeps each process's slices."""
         ckpt_dir = self.config.checkpoint_dir
+        ckpt.wait_for_pending(self.ckpt_group)
         if not ckpt.has_checkpoint(ckpt_dir, alias):
             return False
         ts = self.train_state
-        ts.opt_state, ts.step = load_train_state(
-            ts.model, ckpt.load_checkpoint(ckpt_dir, alias), ts.opt_state)
+        state = ckpt.load_checkpoint(ckpt_dir, alias)
+        if ts.shards is not None:
+            ts.shards.load(ts, state)
+        else:
+            ts.opt_state, ts.step = load_train_state(ts.model, state,
+                                                     ts.opt_state)
         meta = ckpt.load_metadata(ckpt_dir, alias)
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.best_val = float(meta.get("best_val", float("inf")))
@@ -608,6 +714,18 @@ def _parser() -> argparse.ArgumentParser:
                              "every batch; gradients and batchnorm "
                              "statistics all-reduce over NCCL (gloo for "
                              "--device cpu, one worker a process)")
+    parser.add_argument("--zero1", action="store_true",
+                        help="ZeRO-1: split the optimizer state 1/dp over "
+                             "the data axis (with --data-parallel); the "
+                             "gradients reduce-scatter and the parameters "
+                             "all-gather, the same volume as the "
+                             "all-reduce; sets config zero1")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="FSDP: split the parameters 1/dp over the "
+                             "data axis too (implies --zero1; with "
+                             "--data-parallel); gathered at the start of "
+                             "each step and freed after the update; sets "
+                             "config fsdp")
     parser.add_argument("--streaming", action="store_true",
                         help="stream batches from disk (double-buffered "
                              "C++ pack pool) instead of materialising the "
@@ -620,6 +738,16 @@ def _parser() -> argparse.ArgumentParser:
                         help="gradient-accumulation microbatches per "
                              "optimizer update (overrides config "
                              "grad_accum_steps)")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace (Chrome/perfetto "
+                             "JSON) of one warm train step into this "
+                             "directory")
+    parser.add_argument("--nan-debug", action="store_true",
+                        help="raise at the first non-finite value: "
+                             "autograd anomaly mode for the backward, and "
+                             "each module's and autograd Function's "
+                             "forward output checked, naming where it "
+                             "came from")
     parser.add_argument("--multihost", action="store_true",
                         help="join a multi-process run: one command per "
                              "host, combine with --data-parallel for DP "
@@ -658,6 +786,10 @@ def _train(args, device: torch.device, rank: int, world: int,
             config = config.replace(grad_accum_steps=args.grad_accum)
         if args.video_encoder:
             config = config.replace(video_encoder=args.video_encoder)
+        if args.zero1:
+            config = config.replace(zero1=True)
+        if args.fsdp:
+            config = config.replace(fsdp=True)
         if multihost.is_primary():
             config.ensure_dirs()
         multihost.barrier()     # the others find the directories made
@@ -682,11 +814,13 @@ def _train(args, device: torch.device, rank: int, world: int,
         qg_model.check_supported(mc)
         emb = np.load(config.weights_matrix_file).astype(np.float32)
         trainer = Trainer(config, mc, emb, train_ds, val_ds, device=device,
-                          process_group=group)
+                          process_group=group, profile_dir=args.profile_dir)
         if args.resume and trainer.resume(args.resume_alias):
             trainer.log(f"resumed at epoch {trainer.start_epoch} "
                         f"(alias {args.resume_alias!r})")
-        _, best_epoch = trainer.fit(args.epochs)
+        with profiling.nan_debugging(args.nan_debug,
+                                     model=trainer.train_state.model):
+            _, best_epoch = trainer.fit(args.epochs)
         trainer.log(f"Best epoch - {best_epoch} !")
         trainer.log("Done !")
     finally:

@@ -2,6 +2,7 @@
 parameters, and the same f32 greedy tokens as the JAX model."""
 
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,8 @@ def saved(tiny_config, tmp_path_factory):
                    "opt_state": make_optimizer(cfg).init(jparams),
                    "step": jnp.asarray(7, jnp.int32)}
     jckpt.save_checkpoint(cfg.checkpoint_dir, "best", train_state)
-    return cfg, mc, params, state, train_state
+    yield cfg, mc, params, state, train_state
+    shutil.rmtree(root)  # ~0.3 GB: the suite keeps every tmp dir to its end
 
 
 def test_from_checkpoint_is_bit_equal(saved):

@@ -392,3 +392,41 @@ def test_offline_phase_rehearsal_on_cpu(tmp_path):
         "cpu", (mc, params, state, vocab, i2w), tmp_path, device="cpu",
         n_requests=3)
     assert out["leaves"] > 40 and set(out["launches"].values()) == {0}
+
+
+def test_train_features_phase_rehearsal_on_cpu(tmp_path):
+    """Phase 19 is run by main(), and its driving works at tiny widths on
+    the CPU (mode text): two spawned gloo ranks take the f32 steps of the
+    three modes (the sharded states equal the plain one's) and the bf16
+    steps in turns, holding the rule's bytes; the Trainer epoch traces a
+    warm step; the checkpoints round-trip by both backends."""
+    import inspect
+
+    assert "phase_train_features(dev[\"card\"], model)" in \
+        inspect.getsource(chip_smoke.main)
+    mc, params, state, i2w = _tiny_train_model()
+    mc = mc._replace(mode="text")
+    params = {k: v for k, v in params.items()
+              if k not in ("video_enc", "audio_enc")}
+    vocab = {w: int(i) for i, w in i2w.items()}
+    model = (mc, params, {}, vocab, i2w)
+    ranks = chip_smoke._features_ranks("cpu", model, "cpu")
+    assert ranks["backend"] == "gloo"
+    assert ranks["worst_share"] <= chip_smoke.FEATURES_RTOL
+    held = ranks["held_mib"]
+    assert held["zero1"]["params"] == held["plain"]["params"]
+    assert held["zero1"]["opt_state"] < 0.6 * held["plain"]["opt_state"]
+    assert held["fsdp"]["params"] < 0.6 * held["plain"]["params"]
+    assert set(ranks["collective_ms"]) == {"all_reduce", "reduce_scatter",
+                                           "all_gather"}
+    trained = chip_smoke._features_trainer("cpu", model, tmp_path,
+                                           device="cpu", n_batches=2)
+    assert trained["trainer"]._profiled
+    assert trained["traced"]["events"] > 0
+    assert not (tmp_path / "trace").exists()
+    assert set(trained["launches"].values()) == {0}
+    out = chip_smoke._features_checkpoints("cpu", trained["trainer"],
+                                           tmp_path)
+    assert out["tensorstore"] and out["msgpack_mib"] > 0
+    assert set(out["blocked_ms"]) == {"sync", "async"}
+    assert not (tmp_path / "ckpt").exists()

@@ -7,6 +7,7 @@ behave the same on a machine with a card."""
 
 import inspect
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -43,7 +44,8 @@ def saved(tiny_config, tmp_path_factory):
     ts = init_train_state(mc, None, opt, seed=3, device="cpu")
     ckpt.save_checkpoint(cfg.checkpoint_dir, "best",
                          train_state_to_numpy(ts.model, ts.opt_state, 0))
-    return cfg, mc, params, state
+    yield cfg, mc, params, state
+    shutil.rmtree(root)  # ~0.3 GB: the suite keeps every tmp dir to its end
 
 
 @pytest.fixture

@@ -20,7 +20,7 @@ from mmqg_tpu_torch import evaluate as E
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy
 from mmqg_tpu_torch.data.dataset import QGDataset
 from mmqg_tpu_torch.models import qg_model as TQ
-from tests.torch_port_fixtures import peaked, tiny_model
+from tests.torch_port_fixtures import drop_checkpoints, peaked, tiny_model
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -43,7 +43,8 @@ def setup(tiny_config, tiny_corpus, tmp_path_factory):
           "step": np.zeros((), np.int32)}
     JC.save_checkpoint(cfg.checkpoint_dir, "best",
                        jax.tree.map(np.asarray, ts))
-    return cfg, path, mc, params, state
+    yield cfg, path, mc, params, state
+    drop_checkpoints(out)  # the suite keeps every tmp dir to its end
 
 
 @pytest.mark.parametrize("strategy", ["beam", "sampling"])

@@ -28,9 +28,17 @@ from mmqg_tpu_torch.models import qg_model as TQ
 from mmqg_tpu_torch.optim import make_optimizer
 from mmqg_tpu_torch.train import main
 from tests.test_torch_model_configs import CONFIGS, IDS, build, jax_params
-from tests.torch_port_fixtures import walk
+from tests.torch_port_fixtures import drop_checkpoints, walk
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints are read by its end; pytest keeps its tmp
+    dir until the suite ends (``drop_checkpoints``)."""
+    yield
+    drop_checkpoints(tmp_path)
 
 
 @pytest.mark.parametrize("config", CONFIGS, ids=IDS)
@@ -95,7 +103,8 @@ def resnet_setup(tiny_config, tiny_corpus, tmp_path_factory):
           "step": np.zeros((), np.int32)}
     JC.save_checkpoint(cfg.checkpoint_dir, "best",
                        jax.tree.map(np.asarray, ts))
-    return cfg, path, mc, params, state, ds
+    yield cfg, path, mc, params, state, ds
+    drop_checkpoints(out)  # the suite keeps every tmp dir to its end
 
 
 def test_pipeline_generate_matches_jax(resnet_setup):

@@ -163,7 +163,9 @@ def test_copied_host_functions_equal_the_originals(name, args):
 def test_port_and_chip_smoke_import_nothing_of_jax():
     """Every module of mmqg_tpu_torch (walked with pkgutil) and chip_smoke,
     imported in a fresh interpreter, leave no ``jax``, no ``mmqg_tpu`` or
-    ``mmqg_tpu.*`` and no ``sklearn`` module in sys.modules."""
+    ``mmqg_tpu.*``, no ``orbax``, ``flax`` or ``optax`` and no ``sklearn``
+    module in sys.modules (``tensorstore``, which the orbax backend uses,
+    imports no JAX and is loaded only when that backend is used)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mmqg_tpu_torch\n"
@@ -172,7 +174,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'mmqg_tpu', 'sklearn')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mmqg_tpu', "
+        "'sklearn', 'tensorstore', 'matplotlib')]\n"
         "need = {'mmqg_tpu_torch.serve', 'mmqg_tpu_torch.data.native', "
         "'mmqg_tpu_torch.data.saliency', 'mmqg_tpu_torch.data.subtitles', "
         "'mmqg_tpu_torch.data.text_prep', "
@@ -183,7 +186,9 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "'mmqg_tpu_torch.data.streaming', 'mmqg_tpu_torch.data.glove', "
         "'mmqg_tpu_torch.data.vocab', 'mmqg_tpu_torch.prepare', "
         "'mmqg_tpu_torch.convert', 'mmqg_tpu_torch.compat.from_reference', "
-        "'mmqg_tpu_torch.compat.to_reference'}\n"
+        "'mmqg_tpu_torch.compat.to_reference', "
+        "'mmqg_tpu_torch.parallel.zero', 'mmqg_tpu_torch.utils.profiling', "
+        "'mmqg_tpu_torch.utils.audit', 'mmqg_tpu_torch.utils.plotting'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 20 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -27,9 +27,10 @@ from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch import pipeline as P
 from mmqg_tpu_torch import serve as S
 from mmqg_tpu_torch.data import native
-from tests.torch_port_fixtures import (WORDS, caption, f32_pipelines,
-                                       tiny_model, write_cv2_video,
-                                       write_srt, write_stereo_wav)
+from tests.torch_port_fixtures import (WORDS, caption, drop_checkpoints,
+                                       f32_pipelines, tiny_model,
+                                       write_cv2_video, write_srt,
+                                       write_stereo_wav)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -372,7 +373,8 @@ def saved(tiny_config, tmp_path_factory):
     ckpt.save_checkpoint(cfg.checkpoint_dir, "best",
                          {"params": params, "model_state": state,
                           "step": np.zeros((), np.int32)})
-    return cfg, cfg.save(root / "config.json")
+    yield cfg, cfg.save(root / "config.json")
+    drop_checkpoints(root)  # the suite keeps every tmp dir to its end
 
 
 def test_serve_as_a_process_on_the_cpu(saved, media):

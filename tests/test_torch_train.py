@@ -16,6 +16,7 @@ decides (measured 1.3e-4 after two steps). SGD (accumulated step): the
 parameters within atol 1e-5, as the update is linear in the gradient."""
 
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -39,9 +40,19 @@ from mmqg_tpu_torch.models import qg_model as TQ
 from mmqg_tpu_torch.optim import make_optimizer, tree_leaves
 from mmqg_tpu_torch.train import (TrainState, Trainer, batch_arrays, main,
                                   make_train_step, to_device)
-from tests.torch_port_fixtures import tiny_model
+from tests.torch_port_fixtures import drop_checkpoints, tiny_model
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Each test's checkpoints are read by its end; pytest keeps its tmp
+    dir until the suite ends (``drop_checkpoints``)."""
+    yield
+    drop_checkpoints(tmp_path)
+
+
 REPO = Path(__file__).resolve().parent.parent
 LOSS_RTOL, MOMENT_RTOL = 1e-4, 1e-4
 ADAM_PARAM_ATOL, SGD_PARAM_ATOL = 5e-4, 1e-5
@@ -190,10 +201,19 @@ def test_port_checkpoint_is_byte_identical_and_jax_restores_it(setup,
     ckpt.copy_checkpoint(tmp_path, "last", "best")
     assert ckpt.has_checkpoint(tmp_path, "best")
     assert ckpt.load_metadata(tmp_path, "best") == meta
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ckpt.save_checkpoint(tmp_path, "x", port_ts, backend="orbax")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ckpt.copy_checkpoint(tmp_path, "last", "y", async_copy=True)
+    # the orbax backend and an asynchronous copy (ported since): JAX
+    # restores the port's orbax save, the copy holds the msgpack bytes
+    ckpt.save_checkpoint(tmp_path, "x", port_ts, backend="orbax")
+    restored, _ = JC.load_checkpoint(tmp_path, "x", ts0)
+    for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(ts0)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+    ckpt.copy_checkpoint(tmp_path, "last", "y", async_copy=True)
+    ckpt.wait_for_pending()
+    assert ((tmp_path / "y.msgpack").read_bytes()
+            == (tmp_path / "last.msgpack").read_bytes())
+    shutil.rmtree(tmp_path / "x.orbax")     # ~0.5 GB the suite need not keep
+    (tmp_path / "y.msgpack").unlink()
 
 
 def test_resume_from_a_jax_checkpoint_takes_the_jax_step(setup,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import shutil
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,6 +22,19 @@ from mmqg_tpu.data.vocab import END_ID
 from mmqg_tpu.models import qg_model as JQ
 from mmqg_tpu.ops.attention import AttnParams
 from mmqg_tpu_torch.models.qg_model import init_params
+
+
+def drop_checkpoints(root) -> None:
+    """Delete the checkpoints under ``root`` (``*.msgpack``, ``*.orbax/``,
+    ``*.pt``/``*.pth``): the tiny model's published-width VGGish makes
+    each ~0.3 GB, and pytest keeps every tmp dir until the suite ends, so
+    a full run would otherwise hold several GB of them on a shared
+    disk."""
+    for path in sorted(Path(root).rglob("*"), reverse=True):
+        if path.suffix == ".orbax" and path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        elif path.suffix in (".msgpack", ".pt", ".pth") and path.is_file():
+            path.unlink()
 
 
 def tiny_model(config, n_vocab: int = 40, seed: int = 0):
