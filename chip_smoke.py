@@ -160,6 +160,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             blocked time, equal bytes, a load round trip); the orbax
             backend where tensorstore imports, else its ImportError
 
+20. model_axis  the mesh's model axis at the flagship's full width: a
+            (1, 2) grid of two ranks (gloo on cuda:0 with one card, NCCL
+            over two cards with more; with four cards a (2, 2) grid too)
+            takes one f32 tensor-parallel step (cuDNN deterministic; the
+            state stored by JAX's param_shardings, the split leaves
+            gathered at use, the vocab projection column-parallel): every
+            gradient leaf within a stated share of its max of one
+            process's step on the same rows (the ReLU conv towers within a
+            wider one), K4 4x each way a rank, persistent; a sequence-
+            parallel step (gather-free) with the plain step's loss; bf16
+            steps tensor-parallel and one process in turns; the bytes of
+            parameters and optimizer state each rank holds between steps
+            against the rule's; the model group's all-gather of the split
+            leaves alone; sp_greedy_decode of the 32 requests in both modes
+            with the unsharded greedy tokens (f32); GPipe on toy stages
+            against the sequential stack. In this process
+            QGPipeline.shard(shape=(1, 2)) over two positions of cuda:0
+            (or two cards) answers the 32 requests greedy and by beam with
+            the unsharded tokens (f32), launching K1 4x, K2 21x, the int8
+            conv and quantize_s8 5x a replica row on their routes. Then
+            dryrun_multichip over the visible cards (four gloo ranks on
+            cuda:0 with one card)
+
 Phase 5 serves with the int8 VGGish, the card's default (vggish_conv_int8
 5x per encode), and times questions/s and encode ms with it and with the
 bf16 cuDNN tower in turns (int8, bf16, bf16, int8). Phase 6 also compares
@@ -193,6 +216,7 @@ import copy
 import functools
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -230,8 +254,8 @@ from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
 from mmqg_tpu_torch.ops.lstm_train import (bwd_route, lstm_layer_train,
                                            lstm_train_bwd_plain,
                                            lstm_train_fwd_plain)
-from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_leaves,
-                                  tree_map)
+from mmqg_tpu_torch.optim import (apply_updates, make_optimizer, tree_items,
+                                  tree_leaves, tree_map)
 from mmqg_tpu_torch.pipeline import QGPipeline, row_seed_array
 from mmqg_tpu_torch.train import (Trainer, TrainState, batch_arrays,
                                   make_train_step, to_device)
@@ -4414,7 +4438,7 @@ def _features_steps(model_np, mc, host, caps, group, device: str) -> dict:
                             "reduce_scatter": split * 4 / 2 ** 20,
                             "all_gather": split * 4 / 2 ** 20}
     out["whole_leaves"] = [("/".join(map(str, path)), tuple(p.shape))
-                           for path, p in zero._items(shards.params)
+                           for path, p in tree_items(shards.params)
                            if shards.param_dims[path] is None]
     return out
 
@@ -4730,6 +4754,359 @@ def phase_train_features(card: str, model, device: str = "cuda") -> dict:
             "wall_s": wall}
 
 
+# ------------------------------------------------------------- model axis
+
+MA_B = 16                 # the tensor-parallel step's rows (one data row)
+MA_RTOL = 1e-4            # a gradient leaf vs one process, share of its max
+MA_TOWER_RTOL = 5e-2      # the ReLU conv towers (as phase 10)
+MA_LOSS_RTOL = 1e-4
+MA_TIMEOUT = 600          # seconds a rank may take before the phase fails
+MA_PP_TOL = 1e-5          # GPipe vs the sequential stack (JAX's bound)
+
+
+def _ma_steps(blob, grid, device: str) -> dict:
+    """One rank of the model_axis phase (a spawned process)."""
+    from mmqg_tpu_torch.dryrun import gpipe_deltas
+    from mmqg_tpu_torch.optim import Transform, tree_map_with_path
+    from mmqg_tpu_torch.parallel import model_axis, zero
+    from mmqg_tpu_torch.parallel.mesh import row_block, sp_greedy_decode
+
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    mc = ModelConfig(**json.loads(blob["mc"]))
+    params, state = blob["params"], blob["model_state"]
+    host = {k: np.array(v) for k, v in blob["host"].items()}
+    caps = {k: int(v) for k, v in blob["caps"].items()}
+    rows = len(host["valid"])
+    lo, hi = row_block(grid.data_index, grid.dp, rows)
+    mine = to_device({k: v[lo:hi] for k, v in host.items()}, dev)
+    whole = to_device(host, dev)
+    data = grid.data_group if grid.dp > 1 else None
+    base = make_optimizer(train_config(MA_B))
+    grads = []
+
+    def update(g, s, p):
+        grads.append(g)
+        return base.update(g, s, p)
+    opt = Transform(base.init, update)
+
+    def fresh(group=data):
+        model = params_from_numpy(params, state, dev, trainable=True)
+        qg_model.set_process_group(model, group)
+        return TrainState(model, opt.init(qg_model.param_tree(model)))
+
+    out = {"rank": grid.rank, "shape": grid.shape, "rows": hi - lo}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    # f32: one process on every row, then the grid
+    ts = fresh(None)
+    grads.clear()
+    ts, m = make_train_step(mc, opt, dtype=torch.float32)(ts, whole, None,
+                                                          **caps)
+    ref_loss = float(m["loss"])
+    ref_grads = tree_map(lambda g: g.detach().cpu(), grads[0])
+    names = list(_leaf_names(ref_grads))
+    del ts
+    grads.clear()
+    _reset_launches()
+    ts = fresh()
+    step = make_train_step(mc, opt, dtype=torch.float32, grid=grid)
+    ts, m = step(ts, mine, None, **caps)
+    _sync(device)
+    out["launches"] = _launches()
+    out["fwd_routes"] = dict(lstm_layer_train.fwd_routes)
+    out["bwd_routes"] = dict(lstm_layer_train.bwd_routes)
+    tp = ts.model.tp
+    got = tree_map_with_path(
+        lambda path, g: (g if tp.dims.get(path) is None else
+                         model_axis.gather_along(g, tp.dims[path], tp.group)
+                         ).detach().cpu(), grads[0])
+    rel = _grad_rel(got, ref_grads, names)
+    smooth = [n for n in names if not _in_tower(n)]
+    tower = [n for n in names if _in_tower(n)]
+    out["f32"] = {
+        "loss": float(m["loss"]), "ref_loss": ref_loss,
+        "worst": max((rel[n][0], n) for n in smooth),
+        "worst_tower": max((rel[n][0], n) for n in tower),
+        "bad": [n for n, (r, _) in rel.items()
+                if r > (MA_TOWER_RTOL if _in_tower(n) else MA_RTOL)],
+        "split": len(tp.split), "leaves": len(tp.dims),
+        "vocab_parallel": tp.vocab}
+    meta = tree_map(lambda a: torch.empty(np.shape(a), device="meta"),
+                    params)
+    opt_meta = base.init(meta)
+    out["held"] = zero.held_bytes(ts)
+    out["rule"] = {"params": zero.grid_rule_bytes(meta, grid.shape,
+                                                  data=False),
+                   "opt_state": zero.grid_rule_bytes(opt_meta, grid.shape,
+                                                     data=False),
+                   "whole_params": zero.grid_rule_bytes(meta, (1, 1))}
+    split_bytes = sum(math.prod(tp.shapes[path]) * 4 for path, _ in tp.split)
+    out["gather_mib"] = split_bytes / 2 ** 20
+    out["gather_ms"] = _timed(lambda: tp.gather(vocab=True) or tp.release(),
+                              device)
+    del ts, step
+    # a sequence-parallel (gather-free) f32 step: the plain step's loss
+    ts = fresh()
+    ts, m = make_train_step(mc, opt, dtype=torch.float32, grid=grid,
+                            sp_mesh=grid, sp_gather_free=True)(
+        ts, mine, None, **caps)
+    out["sp_loss"] = float(m["loss"])
+    del ts
+    # SP decodes of the 32 requests (f32) against the unsharded greedy
+    req = {k: np.array(v) for k, v in blob["requests"].items()}
+    req_t = to_device(req, dev)
+    rcaps = {k: int(v) for k, v in blob["request_caps"].items()}
+    plain = params_from_numpy(params, state, dev)
+    with torch.no_grad():
+        want = DEC.decode_batch(plain, mc, req_t, strategy="greedy",
+                                max_len=mc.target_steps - 1,
+                                dtype=torch.float32, **rcaps)
+    del plain
+    ts = fresh()
+    model_axis.shard(ts, grid)
+    out["sp_decode"] = {}
+    for gf in (False, True):
+        _reset_launches()
+        toks = sp_greedy_decode(ts.model, mc, req_t, grid,
+                                max_len=mc.target_steps - 1, gather_free=gf,
+                                dtype=torch.float32)
+        _sync(device)
+        out["sp_decode"][gf] = {
+            "equal_rows": int((toks == want).all(dim=1).sum()),
+            "rows": int(want.shape[0]), "launches": _launches()}
+    del ts
+    cudnn.deterministic, cudnn.benchmark = saved
+    # bf16 steps in turns: the grid's and one process's on this rank's rows
+    states = {"tensor_parallel": (fresh(), make_train_step(
+        mc, base, dtype=torch.bfloat16, grid=grid)),
+        "one_process": (fresh(None), make_train_step(
+            mc, base, dtype=torch.bfloat16))}
+    for ts_, step_ in states.values():          # warm-up
+        step_(ts_, mine, None, **caps)
+    walls = {k: [] for k in states}
+    for name in list(states) + list(states)[::-1]:
+        ts_, step_ = states[name]
+        _sync(device)
+        t0 = time.perf_counter()
+        _, m = step_(ts_, mine, None, **caps)
+        _sync(device)
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"model_axis: {name} bf16 loss")
+    out["step_ms"] = walls
+    del states
+    # toy stages 256 wide, 8 microbatches of 32 rows a data row
+    out["gpipe"] = gpipe_deltas(grid, dev, width=256, n_micro=8, mb=32,
+                                seed=SEED + 21)
+    return out
+
+
+def model_axis_rank(rank: int, world: int, port: int, backend: str,
+                    device: str, inputs: str, result: str) -> None:
+    """One rank of the model_axis phase's grid (a spawned process)."""
+    import torch.distributed as dist
+
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+    from mmqg_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = TF32
+    torch.backends.cudnn.allow_tf32 = TF32
+    dev = torch.device(device)
+    if device == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:       # rehearsed on the CPU: the ranks share its cores
+        torch.set_num_threads(1)
+    multihost.initialize_multihost(f"localhost:{port}", world, rank,
+                                   device=dev, backend=backend,
+                                   timeout_s=MA_TIMEOUT)
+    blob = ckpt_io.msgpack_restore(Path(inputs).read_bytes())
+    grid = multihost.Grid(tuple(int(x) for x in blob["shape"]))
+    print(f"model_axis: rank {rank} at {grid} backend "
+          f"{dist.get_backend()} on {dev}\n", end="", flush=True)
+    torch.save(_ma_steps(blob, grid, device), result)
+    dist.destroy_process_group()
+
+
+def _ma_grid(card: str, model, shape, device: str) -> dict:
+    """The model_axis phase's ranks on a ``shape`` grid, checked."""
+    from mmqg_tpu_torch import checkpoint as ckpt_io
+
+    mc, params, state, vocab, i2w = model
+    world = shape[0] * shape[1]
+    host = batch_arrays(SyntheticCorpus(mc, i2w, 1, MA_B * shape[0],
+                                        SEED + 20, max_audio_s=8).batch(0))
+    caps = dict(audio_cap=DEC.audio_bucket(mc, host["audio_len"]),
+                frames_cap=DEC.frames_bucket(mc, host["frames_len"]))
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
+                      dtype=torch.float32)
+    req = pipe._pack(*requests(mc, N_REQUESTS, SEED + 1))
+    rcaps = dict(audio_cap=DEC.audio_bucket(mc, req["audio_len"]),
+                 frames_cap=DEC.frames_bucket(mc, req["frames_len"]))
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    backend = "nccl" if device == "cuda" and cards >= world else "gloo"
+    with tempfile.TemporaryDirectory(prefix="mmqg_model_axis_") as tmp:
+        inputs = Path(tmp) / "inputs.msgpack"
+        # He-scaled VGGish convs, so the audio attention has gradients to
+        # compare (he_vggish, as phase 10)
+        inputs.write_bytes(ckpt_io.msgpack_serialize({
+            "params": he_vggish(params), "model_state": state, "host": host,
+            "caps": {k: np.int64(v) for k, v in caps.items()},
+            "requests": req,
+            "request_caps": {k: np.int64(v) for k, v in rcaps.items()},
+            "shape": np.asarray(shape, np.int64),
+            "mc": json.dumps(mc._asdict())}))
+        if device == "cuda":
+            torch.cuda.empty_cache()        # the ranks may share the card
+        ranks = _spawn_ranks("model_axis", model_axis_rank, world, backend,
+                             device, inputs, Path(tmp), MA_TIMEOUT)
+    where = ("the CPU (a rehearsal)" if device != "cuda" else
+             "one card: the processes test the split and the collectives, "
+             "not scaling" if backend == "gloo" else f"{world} cards")
+    log(f"model_axis: grid {shape} (data, model), {backend}, {where}; "
+        f"{MA_B} rows a data row, Adam lr 1e-4, caps {caps}")
+    want_k4 = {"persistent": mc.text_layers + 1, "per_step": 0}
+    for out in ranks:
+        r, f = out["rank"], out["f32"]
+        log(f"model_axis: rank {r} f32 step: loss {f['loss']:.6f} vs one "
+            f"process {f['ref_loss']:.6f}; worst gradient leaf "
+            f"{f['worst'][1]} {f['worst'][0]:.2e} of its max (tol "
+            f"{MA_RTOL:.0e}), conv towers' worst {f['worst_tower'][1]} "
+            f"{f['worst_tower'][0]:.2e} (tol {MA_TOWER_RTOL:.0e}); "
+            f"{f['split']} of {f['leaves']} parameter leaves split, vocab "
+            f"projection column-parallel {f['vocab_parallel']}; K4 launches "
+            f"fwd {out['launches']['lstm_train_fwd']} bwd "
+            f"{out['launches']['lstm_train_bwd']}, routes fwd "
+            f"{out['fwd_routes']} bwd {out['bwd_routes']} [{card}]")
+        if f["bad"] or abs(f["loss"] - f["ref_loss"]) > MA_LOSS_RTOL * abs(
+                f["ref_loss"]) or not f["vocab_parallel"]:
+            raise AssertionError(f"model_axis: rank {r} f32 step differs "
+                                 f"from one process: {f['bad']}")
+        if device == "cuda" and (out["fwd_routes"] != want_k4
+                                 or out["bwd_routes"] != want_k4):
+            raise AssertionError(f"model_axis: rank {r} K4 routes")
+        log(f"model_axis: rank {r} SP (gather-free) f32 step loss "
+            f"{out['sp_loss']:.6f} vs {f['loss']:.6f}")
+        if abs(out["sp_loss"] - f["loss"]) > MA_LOSS_RTOL * abs(f["loss"]):
+            raise AssertionError(f"model_axis: rank {r} SP loss")
+        held, rule = out["held"], out["rule"]
+        log(f"model_axis: rank {r} holds between steps: parameters "
+            f"{held['params'] / 2 ** 20:.1f} MiB (rule "
+            f"{rule['params'] / 2 ** 20:.1f}, whole "
+            f"{rule['whole_params'] / 2 ** 20:.1f}), optimizer state "
+            f"{held['opt_state'] / 2 ** 20:.1f} MiB (rule "
+            f"{rule['opt_state'] / 2 ** 20:.1f}); the model group's "
+            f"all-gather of the {out['gather_mib']:.1f} MiB of split leaves "
+            f"alone {out['gather_ms']:.1f} ms [{card}]")
+        if held != {k: rule[k] for k in held}:
+            raise AssertionError(f"model_axis: rank {r} holds {held}")
+        for gf, d in out["sp_decode"].items():
+            log(f"model_axis: rank {r} sp_greedy_decode gather_free={gf}: "
+                f"{d['equal_rows']} of {d['rows']} rows equal the unsharded "
+                f"greedy tokens (f32); launches {d['launches']}")
+            if d["equal_rows"] != d["rows"]:
+                raise AssertionError(f"model_axis: rank {r} SP decode "
+                                     f"gather_free={gf}")
+        log(f"model_axis: rank {r} bf16 step ms in turns: " + ", ".join(
+            f"{k} " + " / ".join(f"{t:.1f}" for t in v)
+            for k, v in out["step_ms"].items()) + f" [{card}]")
+        pp = out["gpipe"]
+        log(f"model_axis: rank {r} GPipe {pp['stages']} stages: forward "
+            f"{pp['fwd']:.1e}, gradients {pp['grad']:.1e} of their max vs "
+            f"the sequential stack (tol {MA_PP_TOL:.0e}); {pp['ms']:.1f} ms "
+            f"forward + backward [{card}]")
+        if pp["fwd"] > MA_PP_TOL or pp["grad"] > MA_PP_TOL:
+            raise AssertionError(f"model_axis: rank {r} GPipe")
+    k4 = {k: sum(o["launches"][k] for o in ranks)
+          for k in ("lstm_train_fwd", "lstm_train_bwd")}
+    if device == "cuda" and any(v != world * (mc.text_layers + 1)
+                                for v in k4.values()):
+        raise AssertionError(f"model_axis: K4 launches {k4}")
+    return {"backend": backend, "shape": shape, "k4": k4,
+            "sp_decode_launches": ranks[0]["sp_decode"],
+            "step_ms": {k: float(np.median([t for o in ranks
+                                            for t in o["step_ms"][k]]))
+                        for k in ranks[0]["step_ms"]},
+            "gather_ms": float(np.median([o["gather_ms"] for o in ranks])),
+            "gather_mib": ranks[0]["gather_mib"],
+            "held_mib": {k: v / 2 ** 20 for k, v in ranks[0]["held"].items()},
+            "gpipe_ms": ranks[0]["gpipe"]["ms"]}
+
+
+def _ma_serving(card: str, model, device: str) -> dict:
+    """QGPipeline.shard(shape=(1, 2)): the 32 requests greedy and by beam
+    (f32) against the unsharded pipeline, with the launches of a replica
+    row."""
+    from mmqg_tpu_torch.parallel import make_mesh
+
+    mc, params, state, vocab, i2w = model
+    req = requests(mc, N_REQUESTS, SEED + 1)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    devices = ([torch.device(device, i) for i in range(2)] if cards > 1
+               else [torch.device(device, 0)] * 2)
+    mesh = make_mesh((1, 2), devices=devices)
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device=device,
+                      dtype=torch.float32)
+    sharded = copy.copy(pipe).shard(mesh)
+    held = sharded.replicas.stores[0].held_bytes()
+    pipe.generate(*req)                       # warm-up
+    sharded.generate(*req)
+    _reset_launches()
+    ref = pipe.generate(*req)
+    single = _launches()
+    _reset_launches()
+    got = sharded.generate(*req)
+    launches = _launches()
+    if device == "cuda":        # the routes are read here, before timing
+        check_dp_launches(single, launches, 1)
+    walls = {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        walls[name].append(_wall_questions(
+            pipe if name == "unsharded" else sharded, req))
+    log(f"model_axis: shard(shape=(1, 2)) over {[str(d) for d in devices]}: "
+        f"the split leaves {', '.join(f'{b / 2 ** 20:.1f}' for b in held)} "
+        f"MiB a device between batches; f32 greedy generate() of "
+        f"{N_REQUESTS} requests in turns: " + ", ".join(
+            f"{k} " + " / ".join(f"{t:.1f}" for t in v) + " ms"
+            for k, v in walls.items())
+        + f" [{card}]; launches unsharded {single}, sharded {launches}")
+    same = {"greedy": got == ref,
+            "beam": sharded.generate(*req, strategy="beam",
+                                     beam_size=BEAM_SIZE)
+            == pipe.generate(*req, strategy="beam", beam_size=BEAM_SIZE)}
+    log(f"model_axis: f32 shard(shape=(1, 2)) == unsharded questions {same}")
+    if not all(same.values()):
+        raise AssertionError(f"model_axis: tensor-parallel serving {same}")
+    sharded.replicas.close()
+    return {"launches": launches, "held_mib": [b / 2 ** 20 for b in held],
+            "generate_ms": {k: float(np.median(v)) for k, v in walls.items()}}
+
+
+def phase_model_axis(card: str, model, device: str = "cuda") -> dict:
+    """20. model_axis: tensor and sequence parallelism, GPipe and the
+    multichip dry run at the flagship's full width (``device`` "cpu"
+    rehearses it, with the kernels' plain versions)."""
+    from mmqg_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    grids = {"1x2": _ma_grid(card, model, (1, 2), device)}
+    if cards >= 4:
+        grids["2x2"] = _ma_grid(card, model, (2, 2), device)
+    serving = _ma_serving(card, model, device)
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(cards if cards > 1 else 4, device=device)
+    log(f"model_axis: dryrun_multichip {dry['mesh']} over {dry['backend']} "
+        f"in {time.perf_counter() - t1:.1f} s")
+    wall = time.perf_counter() - t0
+    log(f"model_axis: phase wall {wall:.1f} s")
+    return {"grids": grids, "serving": serving,
+            "dryrun": {k: v for k, v in dry.items() if k != "pp"},
+            "wall_s": wall}
+
+
 class Clock:
     """Wall seconds by phase, printed as each ends and summed at the end."""
 
@@ -4791,6 +5168,8 @@ def main() -> None:
     clock.lap("offline")
     features = phase_train_features(dev["card"], model)
     clock.lap("train_features")
+    axis = phase_model_axis(dev["card"], model)
+    clock.lap("model_axis")
     log(f"phases: {time.perf_counter() - clock.t0:.1f} s in all")
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "mmqg_tpu", "flax",
@@ -4830,6 +5209,21 @@ def main() -> None:
                 "validate": offline["train"]["validate_launches"][kernel],
                 "imported_generate": offline["bridges"]["launches"][kernel]}
 
+    def on_axis(kernel: str) -> dict:
+        """A kernel's launches on phase 20's paths: one greedy generate()
+        of shard(shape=(1, 2)) (one replica row), rank 0's SP decodes
+        (f32, both modes) and the f32 tensor-parallel step of each grid
+        (its ranks' counters summed)."""
+        out = {"tp_serving_greedy": axis["serving"]["launches"][kernel],
+               "sp_decode": {
+                   ("gather_free" if gf else "gather"): d["launches"][kernel]
+                   for gf, d in axis["grids"]["1x2"]["sp_decode_launches"]
+                   .items()}}
+        if kernel.startswith("lstm_train"):
+            out["tp_step"] = {name: g["k4"][kernel]
+                              for name, g in axis["grids"].items()}
+        return out
+
     kernels = [
         {"name": "lstm_seq", "route": "cuda",
          "design": "persistent cooperative sweep (Wh in shared memory, "
@@ -4841,6 +5235,7 @@ def main() -> None:
          "launches_by_config": per_config("lstm_seq"),
          "launches_offline": on_offline("lstm_seq"),
          "launches_train_features": on_features("lstm_seq"),
+         "launches_model_axis": on_axis("lstm_seq"),
          "launches_dp": dp["serving"]["launches"]["lstm_seq"], **k1},
         {"name": "trimodal_attention", "route": "cuda",
          "design": "blocks of 16 batch rows x 16 positions x 128 memory "
@@ -4852,6 +5247,7 @@ def main() -> None:
          "launches_by_config": per_config("trimodal_attention"),
          "launches_offline": on_offline("trimodal_attention"),
          "launches_train_features": on_features("trimodal_attention"),
+         "launches_model_axis": on_axis("trimodal_attention"),
          "launches_dp": dp["serving"]["launches"]["trimodal_attention"],
          **strategies, **k2},
         {"name": "lstm_train_fwd", "route": "cuda",
@@ -4863,6 +5259,7 @@ def main() -> None:
          "launches_by_config": per_config("lstm_train_fwd", trained),
          "launches_offline": on_offline("lstm_train_fwd"),
          "launches_train_features": on_features("lstm_train_fwd"),
+         "launches_model_axis": on_axis("lstm_train_fwd"),
          "launches_dp": dp["training"]["launches"]["lstm_train_fwd"],
          **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
@@ -4873,12 +5270,14 @@ def main() -> None:
          "launches_by_config": per_config("lstm_train_bwd", trained),
          "launches_offline": on_offline("lstm_train_bwd"),
          "launches_train_features": on_features("lstm_train_bwd"),
+         "launches_model_axis": on_axis("lstm_train_bwd"),
          "launches_dp": dp["training"]["launches"]["lstm_train_bwd"],
          **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
          "design": "wgmma implicit GEMM, 3-stage cp.async ring",
          "source": "mmqg_tpu_torch/csrc/vggish_conv.cu",
-         "replaces": "mmqg_tpu/ops/vggish_pallas.py:137", **k3},
+         "replaces": "mmqg_tpu/ops/vggish_pallas.py:137",
+         "launches_model_axis": on_axis("vggish_conv"), **k3},
         {"name": "vggish_conv_int8", "route": "cuda",
          "design": "s8 wgmma (m64n128k32) implicit GEMM, K3's ring and "
                    "tiles; epilogue folds each example's max or writes the "
@@ -4889,6 +5288,7 @@ def main() -> None:
          "launches_by_config": per_config("vggish_conv_int8"),
          "launches_offline": on_offline("vggish_conv_int8"),
          "launches_train_features": on_features("vggish_conv_int8"),
+         "launches_model_axis": on_axis("vggish_conv_int8"),
          "launches_dp": dp["serving"]["launches"]["vggish_conv_int8"],
          **int8["conv"]},
         {"name": "quantize_s8", "route": "cuda",
@@ -4900,6 +5300,7 @@ def main() -> None:
          "launches_by_config": per_config("quantize_s8"),
          "launches_offline": on_offline("quantize_s8"),
          "launches_train_features": on_features("quantize_s8"),
+         "launches_model_axis": on_axis("quantize_s8"),
          "launches_dp": dp["serving"]["launches"]["quantize_s8"],
          **int8["quant"]}]
     log("offline: " + json.dumps({
@@ -4919,6 +5320,13 @@ def main() -> None:
             "epoch_ms"], "traced": features["trainer"]["traced"],
         "checkpoints": features["checkpoints"],
         "wall_s": features["wall_s"]}))
+    log("model_axis: " + json.dumps({
+        "grids": {k: {kk: vv for kk, vv in g.items()
+                      if kk != "sp_decode_launches"}
+                  for k, g in axis["grids"].items()},
+        "serving": {k: v for k, v in axis["serving"].items()
+                    if k != "launches"},
+        "dryrun": axis["dryrun"], "wall_s": axis["wall_s"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -30,6 +30,7 @@ from mmqg_tpu_torch.data.vocab import END_ID, PAD_ID, START_ID
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.decoder import Memories
+from mmqg_tpu_torch.parallel import model_axis
 from mmqg_tpu_torch.utils import prng
 
 Tensor = torch.Tensor
@@ -154,7 +155,8 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
                          k: int = 1, p: float = 0.9,
                          dtype: torch.dtype = torch.bfloat16,
                          row_seeds=None, return_logits: bool = False,
-                         global_rows: Optional[Tuple[int, int]] = None):
+                         global_rows: Optional[Tuple[int, int]] = None,
+                         attn_fn=None):
     """Token generation over encoded memories. Returns tokens (B, max_len)
     int32, PAD after ``<end>``; with ``return_logits`` also the per-step
     logits (B, max_len, V) f32.
@@ -171,9 +173,20 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
     a batch of ``total`` rows split over a data axis (``parallel``). The
     per-batch stream then draws (total, n) a step, as one program over the
     whole batch does (threefry's bits depend on the drawn shape), and these
-    rows take their slice of it; per-row streams need nothing."""
+    rows take their slice of it; per-row streams need nothing.
+
+    ``attn_fn``: another attention for the decoder's steps (see
+    ``Decoder.step``; JAX's ``decode_from_memories``), e.g. the gather-free
+    sequence-parallel one. A column-parallel vocab projection
+    (``decoder.out.column_group``, a model axis) decodes greedily, its
+    argmax taken over the axis (``parallel.model_axis.argmax``)."""
     _check_strategy(strategy)
     dec = model.decoder
+    vocab_group = dec.out.column_group
+    if vocab_group is not None and (strategy != "greedy" or return_logits):
+        raise ValueError("a column-parallel vocab projection decodes "
+                         f"greedy tokens only, not {strategy!r}"
+                         + (" with logits" if return_logits else ""))
     B = mem.enc_text.shape[0]
     dev = mem.enc_text.device
     draws = _draws(strategy, k)
@@ -201,9 +214,11 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
     logits_all: List[Tensor] = []
     for t in range(max_len):
         logits, state, _ = dec.step(model.embedding, tok, inputs, state,
-                                    dtype=dtype)
-        nxt = _select_token(strategy, logits,
-                            noise[t] if draws else None, k, p)
+                                    dtype=dtype, attn_fn=attn_fn)
+        nxt = (model_axis.argmax(logits, vocab_group)
+               if vocab_group is not None else
+               _select_token(strategy, logits, noise[t] if draws else None,
+                             k, p))
         nxt = torch.where(finished, PAD_ID, nxt)
         # PAD is terminal too: hosts truncate at the first PAD/END
         finished = finished | (nxt == END_ID) | (nxt == PAD_ID)
@@ -214,6 +229,15 @@ def decode_from_memories(model: qg_model.QGModel, mem: Memories,
     if return_logits:
         return tokens, torch.stack(logits_all, dim=1)
     return tokens
+
+
+def _whole_vocab(dec, what: str) -> None:
+    """ValueError when ``dec`` projects the vocabulary column-parallel
+    (a model axis): ``what`` needs every logit."""
+    if dec.out.column_group is not None:
+        raise ValueError(f"{what} needs the whole vocabulary; a column-"
+                         "parallel vocab projection decodes greedy tokens "
+                         "only")
 
 
 def beam_from_memories(model: qg_model.QGModel, mem: Memories,
@@ -229,6 +253,7 @@ def beam_from_memories(model: qg_model.QGModel, mem: Memories,
     start; a finished beam extends with PAD at no cost, and a PAD from a
     live beam is terminal. Scores stay f32 under bf16 compute."""
     dec = model.decoder
+    _whole_vocab(dec, "beam search")
     B = mem.enc_text.shape[0]
     K = beam_size
     dev = mem.enc_text.device
@@ -283,6 +308,7 @@ def sequence_logprob_from_memories(model: qg_model.QGModel, mem: Memories,
     the step log-softmax mass of each token up to and including the row's
     first ``<end>``/``<pad>``."""
     dec = model.decoder
+    _whole_vocab(dec, "sequence_logprob")
     B = tokens.shape[0]
     dev = mem.enc_text.device
     tokens = tokens.to(device=dev, dtype=torch.long)

@@ -28,7 +28,7 @@ arguments, so every decode strategy runs either one.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +39,7 @@ from mmqg_tpu_torch.ops.attention import (TriModalAttention,
                                           trimodal_attention_xla)
 
 Tensor = torch.Tensor
+AttnFn = Callable[..., Tuple[Tensor, Tensor, Tensor, dict]]
 
 
 class Memories(NamedTuple):
@@ -73,15 +74,26 @@ class Decoder(nn.Module):
         return StepInputs(cast, w_t, b)
 
     def step(self, emb_table: Tensor, word: Tensor, inputs: StepInputs,
-             state: L.State, *, dtype: torch.dtype = torch.bfloat16
+             state: L.State, *, dtype: torch.dtype = torch.bfloat16,
+             attn_fn: Optional[AttnFn] = None
              ) -> Tuple[Tensor, L.State, dict]:
-        """One decode step. Returns (logits (B, V) f32, new state, maps)."""
+        """One decode step. Returns (logits (B, V) f32, new state, maps).
+        ``attn_fn``: another attention with ``trimodal_attention_xla``'s
+        arguments in place of K2 (JAX ``decoder.step``'s), e.g.
+        ``ops.attention_sp.trimodal_attention_sp`` bound to a model
+        group."""
         emb = L.embed(emb_table, word)                      # (B, D)
         query = torch.cat([emb, state[0][-1]], dim=-1)
         m = inputs.mem
-        ctx_t, ctx_a, ctx_v, maps = trimodal_attention(
-            inputs.w_t, inputs.b, query.to(dtype).contiguous(), m.enc_text,
-            m.enc_video, m.enc_audio, m.text_len, m.video_len, m.audio_len)
+        if attn_fn is not None:
+            ctx_t, ctx_a, ctx_v, maps = attn_fn(
+                self.attn, query, m.enc_text, m.enc_video, m.enc_audio,
+                m.text_len, m.video_len, m.audio_len, dtype=dtype)
+        else:
+            ctx_t, ctx_a, ctx_v, maps = trimodal_attention(
+                inputs.w_t, inputs.b, query.to(dtype).contiguous(),
+                m.enc_text, m.enc_video, m.enc_audio, m.text_len,
+                m.video_len, m.audio_len)
         x = torch.cat([emb, ctx_t, ctx_a, ctx_v], dim=-1)
         top, new_state = L.lstm_step(self.lstm, x, state, dtype=dtype)
         return self.out(top, dtype), new_state, maps
@@ -90,16 +102,20 @@ class Decoder(nn.Module):
                               mem: Memories, init_state: L.State, *,
                               dropout: float = 0.0,
                               generator: Optional[torch.Generator] = None,
-                              dtype: torch.dtype = torch.bfloat16) -> Tensor:
+                              dtype: torch.dtype = torch.bfloat16,
+                              attn_fn: Optional[AttnFn] = None) -> Tensor:
         """All-step teacher forcing over ``inputs (B, T)`` ([<start>,
         target[:-1]]) with a fresh dropout mask per step from ``generator``.
-        Returns logits (B, T, V) f32."""
+        Returns logits (B, T, V) f32 (this rank's columns of V when the
+        vocab projection is column-parallel). ``attn_fn`` replaces
+        ``trimodal_attention_xla``, as in :meth:`step`."""
+        attend = attn_fn or trimodal_attention_xla
         state = init_state
         tops = []
         for t in range(inputs.shape[1]):
             emb = L.embed(emb_table, inputs[:, t])
             query = torch.cat([emb, state[0][-1]], dim=-1)
-            ctx_t, ctx_a, ctx_v, _ = trimodal_attention_xla(
+            ctx_t, ctx_a, ctx_v, _ = attend(
                 self.attn, query, mem.enc_text, mem.enc_video, mem.enc_audio,
                 mem.text_len, mem.video_len, mem.audio_len, dtype=dtype)
             x = torch.cat([emb, ctx_t, ctx_a, ctx_v], dim=-1)
@@ -140,10 +156,13 @@ class NonAttnDecoder(nn.Module):
         return av_vector(mem)
 
     def step(self, emb_table: Tensor, word: Tensor, av_vec: Tensor,
-             state: L.State, *, dtype: torch.dtype = torch.bfloat16
+             state: L.State, *, dtype: torch.dtype = torch.bfloat16,
+             attn_fn: Optional[AttnFn] = None
              ) -> Tuple[Tensor, L.State, None]:
         """One decode step (``decoder.non_attn_step``). Returns (logits
-        (B, V) f32, new state, None: there are no attention maps)."""
+        (B, V) f32, new state, None: there are no attention maps).
+        ``attn_fn`` is accepted for a uniform call and unused: no
+        attention runs."""
         x = torch.cat([L.embed(emb_table, word), av_vec], dim=-1)
         top, new_state = L.lstm_step(self.lstm, x, state, dtype=dtype)
         return self.out(top, dtype), new_state, None
@@ -152,7 +171,8 @@ class NonAttnDecoder(nn.Module):
                               mem: Memories, init_state: L.State, *,
                               dropout: float = 0.0,
                               generator: Optional[torch.Generator] = None,
-                              dtype: torch.dtype = torch.bfloat16) -> Tensor:
+                              dtype: torch.dtype = torch.bfloat16,
+                              attn_fn: Optional[AttnFn] = None) -> Tensor:
         """All-step teacher forcing (``decoder.non_attn_teacher_forced``)
         with a fresh dropout mask per step from ``generator``. Returns
         logits (B, T, V) f32."""

@@ -33,6 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from mmqg_tpu_torch.parallel import model_axis
 from mmqg_tpu_torch.parallel.multihost import all_reduce_sum
 
 Tensor = torch.Tensor
@@ -53,13 +54,23 @@ def mm(x: Tensor, w: Tensor, dtype: torch.dtype) -> Tensor:
 # ----------------------------------------------------------------------- dense
 
 class Dense(nn.Module):
+    """``x @ w + b``. With a ``column_group`` (the column-parallel vocab
+    projection of a model axis, ``parallel.model_axis``) ``w`` holds this
+    rank's columns and the result is this rank's columns of the output;
+    ``b`` stays whole."""
+
     def __init__(self, w: Tensor, b: Tensor):
         super().__init__()
         self.w = _frozen(w)   # (In, Out)
         self.b = _frozen(b)   # (Out,)
+        self.column_group = None
 
     def forward(self, x: Tensor, dtype: torch.dtype = torch.bfloat16) -> Tensor:
-        return mm(x, self.w, dtype) + self.b
+        g = self.column_group
+        if g is None:
+            return mm(x, self.w, dtype) + self.b
+        return (mm(model_axis.copy_to_model(x, g), self.w, dtype)
+                + model_axis.split_to_model(self.b, 0, g))
 
 
 def embed(table: Tensor, ids: Tensor) -> Tensor:

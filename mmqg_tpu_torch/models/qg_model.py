@@ -37,6 +37,7 @@ from mmqg_tpu_torch.models.video_encoder import CHANNELS as VIDEO_CHANNELS
 from mmqg_tpu_torch.models.video_encoder import VideoEncoder
 from mmqg_tpu_torch.models.video_resnet import VideoResNet
 from mmqg_tpu_torch.optim import tree_map
+from mmqg_tpu_torch.parallel import model_axis
 
 Tensor = torch.Tensor
 
@@ -264,6 +265,8 @@ class QGModel(nn.Module):
         self.video_enc = video_enc
         self.audio_enc = audio_enc
         self.decoder = decoder
+        # stored over a model axis: its parallel.model_axis.ModelAxis
+        self.tp = None
 
 
 ATTN_FIELDS = ("w_text", "b_text", "w_video", "b_video", "w_audio",
@@ -462,7 +465,8 @@ def loss_fn(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
             train: bool = True, generator: Optional[torch.Generator] = None,
             dtype: torch.dtype = torch.bfloat16,
             audio_cap: Optional[int] = None,
-            frames_cap: Optional[int] = None) -> Tuple[Tensor, Dict]:
+            frames_cap: Optional[int] = None,
+            mem_constraint=None, attn_fn=None) -> Tuple[Tensor, Dict]:
     """Teacher-forced masked cross-entropy (``qg_model.loss_fn``). Returns
     (objective, aux): the objective is the mean over valid samples of each
     sample's summed CE; aux holds ``loss_per_sample`` (each sample's CE over
@@ -473,7 +477,16 @@ def loss_fn(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
     reads ``av_vector(memories)``). Gradients need ``train=True``: the eval
     encoders run K1, which has no backward.
     Dropout (``mc.text_dropout``, ``mc.dropout``) draws from
-    ``generator``; without one there is none."""
+    ``generator``; without one there is none.
+
+    ``mem_constraint`` (``parallel.mesh.sequence_constraint``):
+    training-side sequence parallelism, the text memory split over the
+    model axis by its context positions. The attention then reads it
+    through ``attn_fn`` when given (``ops.attention_sp
+    .trimodal_attention_sp``, the gather-free softmax), else whole,
+    gathered once before the first step. A column-parallel vocab
+    projection (``model.decoder.out.column_group``) takes the
+    log-softmax over the model axis (``parallel.model_axis.log_prob``)."""
     target = batch["target_ids"].long()                 # (B, T)
     B, T = target.shape
     start = torch.full((B, 1), START_ID, dtype=target.dtype,
@@ -482,12 +495,19 @@ def loss_fn(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
     mem, dec_state, new_state = encode(
         model, mc, batch, train=train, generator=generator, dtype=dtype,
         audio_cap=audio_cap, frames_cap=frames_cap)
+    if mem_constraint is not None:
+        length = mem.enc_text.shape[1]
+        mem = mem._replace(enc_text=mem_constraint(mem.enc_text))
+        if attn_fn is None:
+            mem = mem._replace(enc_text=mem_constraint.gather(mem.enc_text,
+                                                              length))
     logits = model.decoder.teacher_forced_logits(
         model.embedding, dec_inputs, mem, dec_state, dropout=mc.dropout,
-        generator=generator if train else None, dtype=dtype)
+        generator=generator if train else None, dtype=dtype,
+        attn_fn=attn_fn)
 
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    tok_ll = logp.gather(-1, target[..., None])[..., 0]
+    tok_ll = model_axis.log_prob(logits, target,
+                                 model.decoder.out.column_group)
     target_len = batch["target_len"]
     step_mask = (torch.arange(T, device=target.device)[None, :]
                  < target_len[:, None])

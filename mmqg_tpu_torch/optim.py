@@ -31,7 +31,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
@@ -74,6 +75,14 @@ def tree_map_with_path(fn: Callable, tree: Tree, path: Tuple = ()) -> Tree:
         return [tree_map_with_path(fn, v, path + (i,))
                 for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+def tree_items(tree: Tree) -> List[Tuple[Tuple, Any]]:
+    """(path, leaf) pairs in the tree's own order (:func:`tree_map_with_path`'s
+    paths), the same on every process."""
+    out: List[Tuple[Tuple, Any]] = []
+    tree_map_with_path(lambda path, x: out.append((path, x)), tree)
+    return out
 
 
 _NORM: contextvars.ContextVar = contextvars.ContextVar("global_norm",

@@ -12,6 +12,14 @@ the training step's gradient and batchnorm all-reduces, the bucket caps
 Every function takes a ``torch.distributed`` group (``None``: the default
 group) and is the identity when no process group is initialised or the
 group has one member, as the JAX functions are in one process.
+
+A ``(data, model)`` mesh is a :class:`Grid` of processes, one per device in
+row-major order. The ranks of one row of the data axis (a model group)
+see the same batch rows, since JAX splits the batch over "data" only, so
+whatever is per data-parallel rank -- the row block
+(:func:`local_row_range`, :func:`loader_local_rows`), the gradient and
+batchnorm sums -- takes the grid's data group, whose rank is the data
+index.
 """
 
 from __future__ import annotations
@@ -60,6 +68,50 @@ def initialize_multihost(coordinator: Optional[str] = None,
     dist.init_process_group(backend,
                             timeout=datetime.timedelta(seconds=timeout_s),
                             **kw)
+
+
+class Grid:
+    """The process grid of a ``(data, model)`` mesh over the processes of
+    ``group`` (default: every process): rank ``i`` is at data index
+    ``i // model`` and model index ``i % model``, as JAX's row-major
+    ``make_mesh`` places devices. ``data_group``: the ``data`` ranks that
+    share this rank's model index; ``model_group``: the ``model`` ranks
+    that share its data index (``data_ranks``/``model_ranks``: their
+    global ranks, in group order). Every process builds the grid, in the same
+    order (``dist.new_group`` is collective); without a process group the
+    grid is ``(1, 1)`` and both groups are None."""
+
+    def __init__(self, shape: Tuple[int, int], group=None):
+        d, m = (int(s) for s in shape)
+        rank, size = world(group)
+        if d * m != size:
+            raise ValueError(f"a ({d}, {m}) grid needs {d * m} processes, "
+                             f"the group has {size}")
+        self.shape = (d, m)
+        self.dp, self.tp = d, m
+        self.group = group
+        self.rank = rank
+        self.data_index, self.model_index = divmod(rank, m)
+        self.data_group = self.model_group = None
+        self.model_ranks = self.data_ranks = [rank]
+        if size == 1:
+            return
+        ranks = [dist.get_global_rank(group, i) if group not in (
+            None, dist.group.WORLD) else i for i in range(size)]
+        for j in range(m):
+            members = [ranks[i * m + j] for i in range(d)]
+            g = dist.new_group(members)
+            if j == self.model_index:
+                self.data_group, self.data_ranks = g, members
+        for i in range(d):
+            members = [ranks[i * m + j] for j in range(m)]
+            g = dist.new_group(members)
+            if i == self.data_index:
+                self.model_group, self.model_ranks = g, members
+
+    def __repr__(self) -> str:
+        return (f"Grid(data={self.dp}, model={self.tp}, rank {self.rank} at "
+                f"({self.data_index}, {self.model_index}))")
 
 
 def world(group=None) -> Tuple[int, int]:

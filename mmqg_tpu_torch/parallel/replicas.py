@@ -20,31 +20,86 @@ over the whole batch, given the same AV bucket caps: the caller computes
 them from the host arrays of the whole batch before the split, as the JAX
 package does. On CUDA each replica has a stream of its own, so two
 replicas on one card do not share the kernels' per-stream scratch.
+
+On a mesh with a model axis larger than 1 there is one replica per row of
+the data axis, built from the model's weights; each leaf that
+``mesh.param_shardings`` splits is stored as slices over the row's devices
+(:class:`RowStore`), gathered onto the row's first device once per block
+(device-to-device copies) and freed after: ``model_axis``'s gather at use,
+in one process. The replica then runs whole on that device, its kernels as
+they are, with the tokens of the unsharded model.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack
-from typing import Callable, Dict, List
+from contextlib import ExitStack, contextmanager
+from typing import Callable, Dict, Iterator, List
 
 import numpy as np
 import torch
 
 from mmqg_tpu_torch.compat.from_jax import params_from_numpy, tree_to_numpy
 from mmqg_tpu_torch.models import qg_model
-from mmqg_tpu_torch.parallel.mesh import Mesh, pad_batch, row_block
+from mmqg_tpu_torch.optim import tree_items
+from mmqg_tpu_torch.parallel.mesh import (Mesh, model_dims, pad_batch,
+                                          param_shardings, row_block)
 
 # fn(model, batch tensors on its device, first row, padded batch rows)
 BlockFn = Callable[[qg_model.QGModel, Dict[str, torch.Tensor], int, int],
                    torch.Tensor]
 
 
+class RowStore:
+    """A replica's split leaves stored over the devices of its row of the
+    mesh: slice j of each leaf (``mesh.param_shardings`` on the row's
+    model axis) on device j, the leaf itself empty between
+    :meth:`gathered` blocks, in which it is whole on the replica's device."""
+
+    def __init__(self, model: qg_model.QGModel, devices: List[torch.device]):
+        shape = (1, len(devices))
+        params = qg_model.param_tree(model)
+        param_shardings(params, shape)               # the audit raises
+        dims = dict(tree_items(model_dims(params, shape)))
+        self.split = [(p, dims[path]) for path, p in tree_items(params)
+                      if dims[path] is not None]
+        self.slices = []
+        for p, d in self.split:
+            n = p.shape[d] // len(devices)
+            self.slices.append([p.detach().narrow(d, j * n, n).to(dev,
+                                                                copy=True)
+                                for j, dev in enumerate(devices)])
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    def held_bytes(self) -> List[int]:
+        """Bytes of the split leaves each device of the row holds between
+        blocks."""
+        out = [0] * len(self.slices[0]) if self.slices else []
+        for parts in self.slices:
+            for j, s in enumerate(parts):
+                out[j] += s.numel() * s.element_size()
+        return out
+
+    @contextmanager
+    def gathered(self) -> Iterator[None]:
+        """The split leaves whole on the replica's device inside the block,
+        freed after."""
+        for (p, d), parts in zip(self.split, self.slices):
+            p.data = torch.cat([s.to(p.device) for s in parts], dim=d)
+        try:
+            yield
+        finally:
+            for p, _ in self.split:
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+
 class Replicas:
-    """``model`` on every device of ``mesh``'s data axis. The model itself
-    serves as the replica on its own device (the first such position);
-    every other position gets a copy built from its weights
-    (``compat.from_jax``)."""
+    """``model`` on every row of ``mesh``'s data axis. Without a model axis
+    the model itself serves as the replica on its own device (the first
+    such position); every other position gets a copy built from its
+    weights (``compat.from_jax``). With one, every row gets a copy, its
+    split leaves stored over the row's devices (:class:`RowStore`), and
+    the model stays as it is."""
 
     def __init__(self, model: qg_model.QGModel, mesh: Mesh):
         self.mesh = mesh
@@ -53,10 +108,13 @@ class Replicas:
         state = tree_to_numpy(qg_model.model_state(model))
         self.models: List[qg_model.QGModel] = []
         for dev in mesh.data_devices:
-            if dev == home and model not in self.models:
+            if dev == home and model not in self.models and mesh.tp == 1:
                 self.models.append(model)
             else:
                 self.models.append(params_from_numpy(params, state, dev))
+        self.stores = ([RowStore(m, mesh.row(r))
+                        for r, m in enumerate(self.models)]
+                       if mesh.tp > 1 else None)
         self.streams = []
         for dev in mesh.data_devices:
             if dev.type == "cuda":
@@ -115,6 +173,8 @@ class Replicas:
                 ctx.enter_context(torch.cuda.stream(stream))
             tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                        for k, v in block.items()}
+            if self.stores is not None:
+                ctx.enter_context(self.stores[r].gathered())
             out = fn(self.models[r], tensors, lo, total)
             if stream is None:
                 cpu = out.numpy()

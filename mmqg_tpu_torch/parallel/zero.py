@@ -42,20 +42,13 @@ import torch
 from mmqg_tpu_torch.compat.from_jax import (load_train_state,
                                             train_state_to_numpy)
 from mmqg_tpu_torch.models import qg_model
-from mmqg_tpu_torch.optim import tree_leaves, tree_map_with_path
+from mmqg_tpu_torch.optim import (tree_items, tree_leaves,
+                                  tree_map_with_path)
 from mmqg_tpu_torch.parallel import multihost
 from mmqg_tpu_torch.parallel.mesh import fsdp_shardings, zero1_shardings
 
 Tensor = torch.Tensor
 KeyPath = Tuple
-
-
-def _items(tree: Any) -> List[Tuple[KeyPath, Any]]:
-    """(path, leaf) pairs in the tree's own order, the same on every
-    process."""
-    out: List[Tuple[KeyPath, Any]] = []
-    tree_map_with_path(lambda path, x: out.append((path, x)), tree)
-    return out
 
 
 def _slice_shape(shape, d: int, dp: int) -> Tuple[int, ...]:
@@ -87,16 +80,23 @@ class Shards:
     ``group``: the split dimension of every parameter and optimizer-state
     leaf (by tree path), and with FSDP the parameters' slices."""
 
-    def __init__(self, params: Dict, opt_state: Any, group, *, fsdp: bool):
+    def __init__(self, params: Dict, opt_state: Any, group, *, fsdp: bool,
+                 model_axis=None):
         self.group = group
         self.rank, self.dp = multihost.world(group)
         self.fsdp = fsdp
         self.params = params
-        self.param_dims = dict(_items(fsdp_shardings(params, self.dp)))
-        self.shapes = {path: tuple(p.shape) for path, p in _items(params)}
-        self.opt_dims = dict(_items(zero1_shardings(opt_state, self.dp)))
+        # on a model axis the rule is keyed on the whole leaves' shapes,
+        # and the slices split here are the model axis's
+        shape, pmeta, ometa = (self.dp, 1), params, opt_state
+        if model_axis is not None:
+            shape = (self.dp, model_axis.size)
+            pmeta, ometa = model_axis.param_meta, model_axis.opt_meta
+        self.param_dims = dict(tree_items(fsdp_shardings(pmeta, shape)))
+        self.shapes = {path: tuple(p.shape) for path, p in tree_items(params)}
+        self.opt_dims = dict(tree_items(zero1_shardings(ometa, shape)))
         self.opt_shapes = {path: tuple(x.shape)
-                           for path, x in _items(opt_state)}
+                           for path, x in tree_items(opt_state)}
         for path, d in self.opt_dims.items():
             mirror = self._param_path(path)
             if mirror is not None and self.param_dims[mirror] != d \
@@ -104,7 +104,7 @@ class Shards:
                 raise ValueError(f"optimizer state {path} splits dimension "
                                  f"{d}, its parameter {mirror} "
                                  f"{self.param_dims[mirror]}")
-        self.split = [(path, p) for path, p in _items(params)
+        self.split = [(path, p) for path, p in tree_items(params)
                       if self.param_dims[path] is not None]
         self.slices: Dict[KeyPath, Tensor] = {}
         self.gathered_now = True
@@ -130,7 +130,7 @@ class Shards:
     def full_opt_state(self, opt_state: Any) -> Any:
         """The whole optimizer state from every process's slices (one
         all-gather; every process calls it)."""
-        split = [(path, x) for path, x in _items(opt_state)
+        split = [(path, x) for path, x in tree_items(opt_state)
                  if self.opt_dims[path] is not None]
         whole = self._all_gather([x for _, x in split])
         full = {path: _unblocks(rows, self.opt_shapes[path],
@@ -158,7 +158,7 @@ class Shards:
         this process's slice of each split leaf (one reduce-scatter of them
         all, as one flat bucket) and each whole leaf whole (one
         all-reduce)."""
-        items = _items(grads)
+        items = tree_items(grads)
         split = [(path, g) for path, g in items
                  if self.param_dims[path] is not None]
         out = {}
@@ -292,12 +292,14 @@ class Shards:
 
 
 def shard(ts, group, *, fsdp: bool = False) -> Shards:
-    """Split ``ts`` (a whole ``train.TrainState``) over the data axis of
-    ``group`` in place: its optimizer state becomes this process's slices
-    and, with ``fsdp``, its split parameters are freed, their slices kept.
-    Returns the ``Shards``, also set as ``ts.shards``."""
+    """Split ``ts`` (a whole ``train.TrainState``, or one stored over a
+    model axis, ``model_axis.shard``: its slices are split further, by the
+    rule on the whole leaves) over the data axis of ``group`` in place:
+    its optimizer state becomes this process's slices and, with ``fsdp``,
+    its split parameters are freed, their slices kept. Returns the
+    ``Shards``, also set as ``ts.shards``."""
     shards = Shards(qg_model.param_tree(ts.model), ts.opt_state, group,
-                    fsdp=fsdp)
+                    fsdp=fsdp, model_axis=ts.model.tp)
     ts.opt_state = shards.shard_opt_state(ts.opt_state)
     if fsdp:
         shards.take_param_slices()
@@ -322,7 +324,27 @@ def rule_bytes(tree: Any, dims: Any, dp: int) -> int:
     (``mesh.zero1_shardings`` / ``fsdp_shardings``): a split leaf's
     1/dp, a whole leaf's all."""
     total = 0
-    for (_, x), (_, d) in zip(_items(tree), _items(dims)):
+    for (_, x), (_, d) in zip(tree_items(tree), tree_items(dims)):
         n = math.prod(x.shape)
         total += (n // dp if d is not None else n) * x.element_size()
+    return total
+
+
+def grid_rule_bytes(tree: Any, mesh, *, data: bool = True) -> int:
+    """Bytes of one process's share of ``tree`` (whole leaves) on a
+    ``(data, model)`` mesh: each leaf over the product of the axes its
+    spec names (``mesh.grid_specs``; ``data=False``: the model axis's
+    ``param_shardings`` alone)."""
+    from mmqg_tpu_torch.parallel.mesh import (grid_specs, mesh_shape,
+                                              param_shardings)
+    sizes = dict(zip(("data", "model"), mesh_shape(mesh)))
+    specs = (grid_specs(tree, mesh) if data
+             else param_shardings(tree, mesh, audit=False))
+    total = 0
+    for (path, x) in tree_items(tree):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        split = math.prod(sizes[a] for a in spec if a is not None)
+        total += math.prod(x.shape) // split * x.element_size()
     return total

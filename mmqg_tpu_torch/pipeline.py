@@ -37,7 +37,7 @@ import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,10 +114,15 @@ class QGPipeline:
 
     # ---------------------------------------------------------- multi-device
     def shard(self, mesh: Optional[Mesh] = None,
+              shape: Optional[Tuple[int, int]] = None,
               devices: Optional[Sequence] = None) -> "QGPipeline":
-        """Serve data-parallel over ``mesh`` (default: ``make_mesh`` over
-        ``devices``, else every visible card): one replica of the model on
-        each device of the data axis (``parallel.replicas``). Every request
+        """Serve data-parallel over ``mesh`` (default: ``make_mesh(shape)``
+        over ``devices``, else every visible card): one replica of the
+        model on each row of the data axis (``parallel.replicas``). A
+        ``(data, model)`` ``shape`` also applies the tensor-parallel rules
+        (JAX's ``shard(shape=)``): each replica's split leaves are stored
+        over its row's devices and gathered onto the row's first device
+        for each batch. Every request
         batch is packed on the host, its AV buckets taken from the whole
         batch, padded to the data axis and split into contiguous row
         blocks, each encoded and decoded on its device (enqueued from one
@@ -134,7 +139,7 @@ class QGPipeline:
         if self.replicas is not None:
             self.replicas.close()
         self.replicas = Replicas(self.model, mesh if mesh is not None
-                                 else make_mesh(devices=devices))
+                                 else make_mesh(shape, devices=devices))
         return self
 
     # ------------------------------------------------------------ loading

@@ -4,6 +4,8 @@
     python -m mmqg_tpu_torch.train -c config.json --device cpu
     python -m mmqg_tpu_torch.train -c config.json --data-parallel  # all cards
     python -m mmqg_tpu_torch.train -c config.json --data-parallel --zero1
+    python -m mmqg_tpu_torch.train -c config.json --data-parallel \
+        --sequence-parallel    # config mesh_shape (data, model), e.g. (1, 2)
 
 One train step: ``qg_model.loss_fn`` (train-mode encode, the text and video
 LSTMs through K4, teacher-forced decode) under autograd, in any mode,
@@ -23,11 +25,15 @@ batch would share: the valid count, the batchnorm statistics and the
 gradients. ``--zero1`` splits the optimizer state over the data axis and
 ``--fsdp`` the parameters too (``parallel/zero.py``: the gradients
 reduce-scattered, the parameters all-gathered). ``--streaming`` reads
-batches with ``data.streaming``'s pack pool. ``--profile-dir`` traces one
-warm step with ``torch.profiler``; ``--nan-debug`` raises at the first
-non-finite value (``utils/profiling.py``). Not ported: the model axis of
-the mesh (tensor and sequence parallelism, GPipe; ROADMAP item 19b);
-``--compile-cache`` is left out (nothing is compiled ahead). ``Config``,
+batches with ``data.streaming``'s pack pool. A ``config.mesh_shape`` of
+``(data, model)`` lays the processes out as that mesh
+(``multihost.Grid``): the model axis stores the state by JAX's
+tensor-parallel rules (``parallel/model_axis.py``), and
+``--sequence-parallel`` (``--sp-gather-free``) splits the text memory over
+it. ``--profile-dir`` traces one warm step with ``torch.profiler``;
+``--nan-debug`` raises at the first non-finite value
+(``utils/profiling.py``). ``--compile-cache`` is left out (nothing is
+compiled ahead). ``Config``,
 ``QGDataset``, BLEU and the pipelining helper are the port's own copies of
 the JAX package's modules; either package's ``config.json`` loads.
 """
@@ -44,6 +50,7 @@ import time
 from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,9 +73,10 @@ from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.optim import (Transform, apply_updates, global_norm,
                                   learning_rate_schedule, make_optimizer,
                                   norm_over, tree_leaves, tree_map)
-from mmqg_tpu_torch.parallel import multihost, zero
+from mmqg_tpu_torch.ops.attention_sp import trimodal_attention_sp
+from mmqg_tpu_torch.parallel import model_axis, multihost, zero
 from mmqg_tpu_torch.parallel.mesh import (Mesh, pad_batch, padded_rows,
-                                          row_block)
+                                          row_block, sequence_constraint)
 from mmqg_tpu_torch.parallel.multihost import all_reduce_flat
 from mmqg_tpu_torch.utils import profiling
 from mmqg_tpu_torch.utils.device import resolve_device
@@ -131,7 +139,10 @@ StepFn = Callable[..., Tuple[TrainState, Dict[str, Tensor]]]
 def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                     dtype: torch.dtype = torch.bfloat16,
                     accum_steps: int = 1, process_group=None,
-                    zero1: bool = False, fsdp: bool = False) -> StepFn:
+                    zero1: bool = False, fsdp: bool = False,
+                    grid: Optional[multihost.Grid] = None,
+                    sp_mesh: Optional[multihost.Grid] = None,
+                    sp_gather_free: bool = False) -> StepFn:
     """``train_step(state, batch, generator, *, audio_cap=None,
     frames_cap=None) -> (state, metrics)``: one optimizer update from
     ``batch`` (tensors on the model's device), in place on ``state``.
@@ -166,10 +177,41 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
     slices, and the parameters are all-gathered after the update (ZeRO-1)
     or at the start of the next step (FSDP). The update equals the
     all-reduced step's. Without a data axis both are no-ops, as in the
-    JAX package."""
+    JAX package.
+
+    ``grid`` (a ``multihost.Grid``, in place of ``process_group``): the
+    step on a ``(data, model)`` mesh of processes. The data group plays
+    ``process_group``'s part. A model axis larger than 1 stores the state
+    by JAX's ``param_shardings`` (``parallel.model_axis.shard``, done here
+    on the first call if the caller has not): the split leaves are
+    gathered over the model group at the start of the step, the ranks of a
+    model group compute the same whole step on their data row's rows --
+    but for the vocab projection, column-parallel -- and each keeps its
+    slice of the gradients; the optimizer updates the slices (its norm
+    summed over both axes), and the whole copies are freed. ZeRO-1/FSDP
+    split the slices further over the data axis.
+
+    ``sp_mesh`` (a grid; JAX's ``make_train_step(sp_mesh=)``): training-side
+    sequence parallelism, the text memory split over the grid's model axis
+    through the teacher-forced decode and its backward
+    (``mesh.sequence_constraint``); ``sp_gather_free`` runs the decoder's
+    text attention as ``ops.attention_sp.trimodal_attention_sp``. Without
+    a model axis both are no-ops."""
+    if grid is not None and process_group is not None:
+        raise ValueError("pass a grid or a process group, not both")
     group = process_group
+    model_group = None
+    if grid is not None:
+        group = grid.data_group if grid.dp > 1 else None
+        model_group = grid.model_group if grid.tp > 1 else None
     sharded = ((zero1 or fsdp) and group is not None
                and multihost.world(group)[1] > 1)
+    mem_constraint, attn_fn = None, None
+    if sp_mesh is not None and sp_mesh.tp > 1:
+        mem_constraint = sequence_constraint(sp_mesh)
+        if sp_gather_free:
+            attn_fn = partial(trimodal_attention_sp,
+                              group=sp_mesh.model_group)
 
     def train_step(ts: TrainState, batch: Dict[str, Tensor], generator, *,
                    audio_cap: Optional[int] = None,
@@ -178,6 +220,8 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
         B = batch["target_ids"].shape[0]
         if B % A:
             raise ValueError(f"batch {B} not divisible by accum_steps {A}")
+        if model_group is not None and ts.model.tp is None:
+            model_axis.shard(ts, grid)
         if sharded:
             if ts.shards is None:
                 zero.shard(ts, group, fsdp=fsdp)
@@ -188,6 +232,9 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
         elif ts.shards is not None:
             raise ValueError("the state is split over a data axis: make the "
                              "step with zero1/fsdp and its process group")
+        tp = ts.model.tp
+        if tp is not None:
+            tp.gather()
         params = qg_model.param_tree(ts.model)
         for p in tree_leaves(params):
             p.grad = None
@@ -204,7 +251,8 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
             w = mb["valid"].sum().float() / n_all
             obj, aux = qg_model.loss_fn(
                 ts.model, mc, mb, train=True, generator=generator,
-                dtype=dtype, audio_cap=audio_cap, frames_cap=frames_cap)
+                dtype=dtype, audio_cap=audio_cap, frames_cap=frames_cap,
+                mem_constraint=mem_constraint, attn_fn=attn_fn)
             (obj * w).backward()
             qg_model.load_model_state(ts.model, aux["state"])
             parts.append((w, obj.detach(), aux["loss_per_sample"].detach(),
@@ -225,6 +273,13 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                        "loss_per_token": ce / torch.clamp(ntok, min=1.0)}
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                          else p.grad, params)
+        if tp is not None:
+            # each rank's slice of the replicas' whole gradients; the
+            # parameters go back to their slices for the update
+            grads = tp.own_grads(grads)
+            for p in tree_leaves(params):
+                p.grad = None
+            tp.release()
         shards = ts.shards
         if shards is not None:
             grads = shards.reduce_scatter(grads)
@@ -238,8 +293,14 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                 grads = tree_map(lambda _: next(summed), grads)
         # sharded, the clip's norm and the metric's sum every process's
         # slices
-        with (norm_over(shards.global_norm) if shards is not None
-              else nullcontext()):
+        norm = None
+        if tp is not None:
+            norm = partial(tp.norm_buckets, data_dims=(
+                shards.param_dims if shards is not None else {}),
+                data_group=group)
+        elif shards is not None:
+            norm = shards.global_norm
+        with norm_over(norm) if norm is not None else nullcontext():
             updates, ts.opt_state = optimizer.update(grads, ts.opt_state,
                                                      targets)
             metrics["grad_norm"] = global_norm(grads).detach()
@@ -262,7 +323,9 @@ def make_validate_step(mc: qg_model.ModelConfig, *,
     the ``target_steps`` decode steps through K2 on the card (the attention
     decoder) or reads the AV vector (the non-attention decoder); argmax
     feeds the next step and the CE is taken against the target at every
-    step, averaged per sample over its target length."""
+    step, averaged per sample over its target length. A column-parallel
+    vocab projection (a model axis) takes the log-softmax and the argmax
+    over the axis (``parallel.model_axis``)."""
     @torch.no_grad()
     def validate_step(model: qg_model.QGModel, batch: Dict[str, Tensor],
                       audio_cap: Optional[int] = None,
@@ -276,12 +339,12 @@ def make_validate_step(mc: qg_model.ModelConfig, *,
         tok = torch.full((B,), START_ID, dtype=torch.long,
                          device=target.device)
         ces, toks = [], []
+        vocab = dec.out.column_group     # a column-parallel projection
         for t in range(T):
             logits, state, _ = dec.step(model.embedding, tok, inputs, state,
                                         dtype=dtype)
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            ces.append(-logp.gather(-1, target[:, t:t + 1])[:, 0])
-            tok = torch.argmax(logits, dim=-1)
+            ces.append(-model_axis.log_prob(logits, target[:, t], vocab))
+            tok = model_axis.argmax(logits, vocab)
             toks.append(tok)
         ces = torch.stack(ces, dim=1)
         target_len = batch["target_len"]
@@ -340,6 +403,17 @@ class Trainer:
     ``resume`` keeps each process's slices of the loaded state. Without a
     data axis they are no-ops, as in the JAX package.
 
+    A ``(data, model)`` mesh (``grid``, a ``multihost.Grid`` over the
+    processes; or ``mesh`` with a model axis larger than 1, whose grid is
+    built over ``process_group``): every process of a model group trains
+    on its data row's block, the state stored over the model axis by
+    JAX's rules (``make_train_step(grid=)``); the dropout generator and
+    the row block follow the data index, the batchnorm statistics and
+    gradient sums the data group, and the checkpoints gather the model
+    axis's slices too. ``config.sequence_parallel_train`` (and
+    ``sp_gather_free``) split the text memory over the model axis; no-ops
+    without one, as in the JAX package.
+
     ``profile_dir``: a ``torch.profiler`` trace (``utils.profiling
     .trace``) of the first batch whose AV-bucket variant has already run
     once, so a warm step; the lag-2 backlog is drained first and the loss
@@ -348,6 +422,7 @@ class Trainer:
     def __init__(self, config, mc: qg_model.ModelConfig, emb_weights,
                  train_ds: QGDataset, val_ds: QGDataset, *, device="cuda",
                  mesh: Optional[Mesh] = None, process_group=None,
+                 grid: Optional[multihost.Grid] = None,
                  log_fn=print, profile_dir=None):
         qg_model.check_supported(mc)
         self.config = config
@@ -358,21 +433,40 @@ class Trainer:
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.accum_steps = getattr(config, "grad_accum_steps", 1) or 1
-        if mesh is not None and process_group is None and mesh.dp > 1:
-            process_group = dist.group.WORLD
-        self.rank, self.dp = (multihost.world(process_group)
-                              if process_group is not None else (0, 1))
-        if mesh is not None and mesh.dp != self.dp:
-            raise ValueError(f"{mesh} has a data axis of {mesh.dp}, but the "
-                             f"process group has {self.dp} processes (one "
-                             "process per device of the data axis)")
+        if grid is None and mesh is not None and mesh.tp > 1:
+            grid = multihost.Grid((mesh.dp, mesh.tp), process_group)
+        if grid is not None:
+            if mesh is not None and (mesh.dp, mesh.tp) != grid.shape:
+                raise ValueError(f"{mesh} is not the grid's {grid.shape}")
+            process_group = grid.data_group
+            self.rank, self.dp = grid.data_index, grid.dp
+        else:
+            if mesh is not None and process_group is None and mesh.dp > 1:
+                process_group = dist.group.WORLD
+            self.rank, self.dp = (multihost.world(process_group)
+                                  if process_group is not None else (0, 1))
+            if mesh is not None and mesh.dp != self.dp:
+                raise ValueError(f"{mesh} has a data axis of {mesh.dp}, but "
+                                 f"the process group has {self.dp} "
+                                 "processes (one process per device of the "
+                                 "data axis)")
+        self.grid = grid if grid is not None and grid.tp > 1 else None
         # the group the collectives run over: none on one device
         self.group = process_group if self.dp > 1 else None
         # checkpoints and stats: the primary of every process there is
         self.primary = multihost.is_primary()
-        self.ckpt_group = (self.group if self.group is not None else
+        self.ckpt_group = ((grid.group or dist.group.WORLD)
+                           if self.grid is not None else
+                           self.group if self.group is not None else
                            dist.group.WORLD if multihost.world()[1] > 1
                            else None)
+        # training-side SP: only with a model axis to split the context
+        # over (a no-op otherwise, as in the JAX package)
+        self.sp_mesh = (self.grid if getattr(config,
+                                             "sequence_parallel_train", False)
+                        else None)
+        self.sp_gather_free = (bool(getattr(config, "sp_gather_free", False))
+                               and self.sp_mesh is not None)
         self.log = log_fn if self.primary else (lambda *a, **k: None)
         self.profile_dir = profile_dir
         self._profiled = False
@@ -398,13 +492,16 @@ class Trainer:
                                             seed=config.seed,
                                             device=self.device)
         qg_model.set_process_group(self.train_state.model, self.group)
+        if self.grid is not None:
+            model_axis.shard(self.train_state, self.grid)
         if self.zero1:
             zero.shard(self.train_state, self.group, fsdp=self.fsdp)
-        self.train_step = make_train_step(mc, self.optimizer,
-                                          dtype=self.dtype,
-                                          accum_steps=self.accum_steps,
-                                          process_group=self.group,
-                                          zero1=self.zero1, fsdp=self.fsdp)
+        self.train_step = make_train_step(
+            mc, self.optimizer, dtype=self.dtype,
+            accum_steps=self.accum_steps,
+            process_group=self.group if self.grid is None else None,
+            zero1=self.zero1, fsdp=self.fsdp, grid=self.grid,
+            sp_mesh=self.sp_mesh, sp_gather_free=self.sp_gather_free)
         self.av_bucketing = getattr(config, "train_av_bucketing", True)
         self.av_bucket_granularity = int(
             getattr(config, "train_av_bucket_granularity", 8))
@@ -497,7 +594,8 @@ class Trainer:
 
     def validate(self) -> Dict[str, float]:
         shards = self.train_state.shards
-        with shards.gathered() if shards is not None else nullcontext():
+        with shards.gathered() if shards is not None else nullcontext(), \
+                model_axis.whole(self.train_state.model):
             return self._validate()
 
     def _validate(self) -> Dict[str, float]:
@@ -620,15 +718,17 @@ class Trainer:
         collective), so after a failure (``sync`` False) it is not saved:
         ``last`` stays the last completed epoch's."""
         ts = self.train_state
-        if ts.shards is not None and not sync:
-            self.log("warning: the optimizer state is split over the data "
-                     "axis; after a failure it is not gathered (a "
-                     "collective) and not saved")
+        if (ts.shards is not None or ts.model.tp is not None) and not sync:
+            self.log("warning: the train state is split over the mesh; "
+                     "after a failure it is not gathered (a collective) and "
+                     "not saved")
             return
         group = self.ckpt_group if sync else None
         if group is None and not self.primary:
             return
-        if ts.shards is not None:
+        if ts.model.tp is not None:
+            host = ts.model.tp.host_state(ts)
+        elif ts.shards is not None:
             host = ts.shards.host_state(ts)
         else:
             host = (train_state_to_numpy(ts.model, ts.opt_state, ts.step)
@@ -655,7 +755,9 @@ class Trainer:
             return False
         ts = self.train_state
         state = ckpt.load_checkpoint(ckpt_dir, alias)
-        if ts.shards is not None:
+        if ts.model.tp is not None:
+            ts.model.tp.load(ts, state)
+        elif ts.shards is not None:
             ts.shards.load(ts, state)
         else:
             ts.opt_state, ts.step = load_train_state(ts.model, state,
@@ -726,6 +828,19 @@ def _parser() -> argparse.ArgumentParser:
                              "--data-parallel); gathered at the start of "
                              "each step and freed after the update; sets "
                              "config fsdp")
+    parser.add_argument("--sequence-parallel", action="store_true",
+                        help="training-side SP: split the context axis of "
+                             "the text attention memory over the mesh's "
+                             "model axis (needs --data-parallel and "
+                             "mesh_shape with model axis > 1); sets config "
+                             "sequence_parallel_train")
+    parser.add_argument("--sp-gather-free", action="store_true",
+                        help="with --sequence-parallel: run the decoder's "
+                             "text attention as the gather-free "
+                             "distributed softmax (O(B*H) communication a "
+                             "step whatever the context length, "
+                             "ops/attention_sp.py) instead of gathering "
+                             "the memory once; sets config sp_gather_free")
     parser.add_argument("--streaming", action="store_true",
                         help="stream batches from disk (double-buffered "
                              "C++ pack pool) instead of materialising the "
@@ -790,10 +905,16 @@ def _train(args, device: torch.device, rank: int, world: int,
             config = config.replace(zero1=True)
         if args.fsdp:
             config = config.replace(fsdp=True)
+        config = _sp_flags(args, config)
         if multihost.is_primary():
             config.ensure_dirs()
         multihost.barrier()     # the others find the directories made
         group = dist.group.WORLD if data_parallel and world > 1 else None
+        grid = None
+        if group is not None and tuple(config.mesh_shape) != (1, 1):
+            # an explicit (data, model) layout over the processes
+            grid = multihost.Grid(tuple(config.mesh_shape), group)
+            group = grid.data_group
         load_media = args.mode != "text"
         if args.streaming:
             # data-parallel: each process packs media for its rows only
@@ -814,7 +935,8 @@ def _train(args, device: torch.device, rank: int, world: int,
         qg_model.check_supported(mc)
         emb = np.load(config.weights_matrix_file).astype(np.float32)
         trainer = Trainer(config, mc, emb, train_ds, val_ds, device=device,
-                          process_group=group, profile_dir=args.profile_dir)
+                          process_group=None if grid is not None else group,
+                          grid=grid, profile_dir=args.profile_dir)
         if args.resume and trainer.resume(args.resume_alias):
             trainer.log(f"resumed at epoch {trainer.start_epoch} "
                         f"(alias {args.resume_alias!r})")
@@ -826,6 +948,31 @@ def _train(args, device: torch.device, rank: int, world: int,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _sp_flags(args, config):
+    """``--sequence-parallel`` and ``--sp-gather-free`` into the config,
+    with the JAX CLI's check."""
+    if args.sequence_parallel:
+        config = config.replace(sequence_parallel_train=True)
+    if args.sp_gather_free:
+        if not (args.sequence_parallel or config.sequence_parallel_train):
+            raise SystemExit("--sp-gather-free requires --sequence-parallel "
+                             "(it selects HOW the SP attention communicates)")
+        config = config.replace(sp_gather_free=True)
+    return config
+
+
+def _check_mesh(config, world: int) -> None:
+    """SystemExit unless ``config.mesh_shape`` is (1, 1) (every process on
+    the data axis) or a ``(data, model)`` layout of the ``world``
+    processes, as the JAX CLI's ``make_mesh`` requires of its devices."""
+    if tuple(config.mesh_axis_names) != ("data", "model"):
+        raise SystemExit("mesh_axis_names must stay ('data', 'model'): the "
+                         "sharding rules (parallel/mesh.py) name those axes")
+    shape = tuple(config.mesh_shape)
+    if shape != (1, 1) and shape[0] * shape[1] != world:
+        raise SystemExit(f"mesh shape {shape} != {world} devices")
 
 
 def _worker(args, devices, base: int, world: int, coordinator: str,
@@ -908,10 +1055,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     else:
         world, base = per_host, 0
         coordinator = f"localhost:{_free_port()}" if world > 1 else None
+    config = _sp_flags(args, Config.load(args.config_path)
+                       if args.config_path else Config())
+    if args.data_parallel and world > 1:
+        _check_mesh(config, world)
     if args.data_parallel:
         if world > 1:
+            shape = tuple(config.mesh_shape)
             print(f"data-parallel over {world} processes ({per_host} on "
-                  "this host)")
+                  "this host)" + ("" if shape == (1, 1) else
+                                  f", mesh (data, model) {shape}"))
         else:
             print("warning: --data-parallel requested but only one device "
                   "is visible; training single-device")

@@ -310,8 +310,9 @@ def test_replicas_keep_the_model_on_its_device_and_copy_it_elsewhere():
     for a, b in zip(TQ.param_tree(reps.models[2])["decoder"]["out"].values(),
                     TQ.param_tree(model)["decoder"]["out"].values()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="19b"):
-        make_mesh((1, 2), devices=CPU2)
+    mesh = make_mesh((1, 2), devices=CPU2)
+    assert mesh.shape == {"data": 1, "model": 2}
+    assert mesh.row(0) == [torch.device("cpu")] * 2
     if not torch.cuda.is_available():   # the default is the card's
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
