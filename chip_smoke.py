@@ -37,7 +37,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             versions at the encoders' shapes and one edge case (B=5, T=1),
             f32 and bf16, with times; the forward's and the backward's
             routes must be the persistent sweeps at the encoders' shapes; the
-            forward's two routes timed in turns at text layer 0 bf16
+            forward's two routes timed in turns at text layer 0 bf16; then
+            shapes off the main path, each with its time and route: H=2048
+            at B=20 and 32 (both directions per step) and B=128 at H=512
+            (the forward's sweep in row chunks, the backward per step)
 9. train    Trainer.run_epoch at the flagship's full width, bf16, batch 32,
             on a synthetic in-memory corpus: K4 must launch 4x forward and
             4x backward per step, all persistent, K1/K2 none; one step timed
@@ -110,16 +113,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             the unsharded counts times the replicas; the tokens of greedy,
             sampling (per-row and per-batch streams), topk, topp and beam
             (K=4) equal the unsharded pipeline's; bf16 generate() unsharded
-            and sharded in turns, of 37 and of 128 requests. Then a
-            two-rank data-parallel train step
-            (spawned processes: gloo on cuda:0 tensors with one card, NCCL
-            over two cards with more), B=16 with 8 rows a rank and fewer
-            frames on rank 1, f32, SGD, against one process's step on the
-            16 rows: loss, every gradient leaf, the parameters, K4 4x
-            persistent each way a rank, equal parameters on both ranks;
-            the step ms at world size 1 and 2, the gradient all-reduce's
-            ms, and one NCCL group at world size 1 (its all-reduce checked
-            and timed). Each group's backend and world size is printed
+            and sharded in turns, of 37 and of 128 requests. Then the
+            data-parallel train step at two and at four ranks (spawned
+            processes: NCCL, a card a rank, where there are that many
+            cards, else gloo on the cards in turn, all on cuda:0 with one),
+            B=16 with 8 or 4 rows a rank and fewer frames in the second
+            half, f32, SGD, against one process's step on the 16 rows:
+            loss, every gradient leaf, the parameters, K4 4x persistent
+            each way a rank, equal parameters on every rank; the step ms at
+            world size 1, 2 and 4, the gradient all-reduce's ms, and one
+            NCCL group at world size 1 (its all-reduce checked and timed).
+            Each group's backend and world size is printed
 18. offline the offline half: a raw corpus written from SEED (8 lecture
             mp4s as in 14, .srt, staged 44.1 kHz stereo wavs, 96 labelled
             questions of 4-30 s, videos.json, a 300-d GloVe file covering
@@ -1205,6 +1209,14 @@ K4_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 # dh by a bf16 ulp of da . Wh^T and the reverse sweep carries it.
 K4_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 K4_NAMES = ("dwx", "dwh", "db", "dx", "dh0", "dc0")
+# shapes off the main path whose sweeps cannot hold every block at once,
+# with the routes the wrappers must pick there: H=2048 (256 column blocks a
+# row block outnumber the resident ones, and the f32 slices of Wh exceed
+# shared memory), so both directions step; B=128 at H=512, where the
+# forward runs its sweep in row chunks and the backward steps
+K4_WIDE = ((("wide", 20, 37, 300, 2048), ("per_step", "per_step")),
+           (("wide", 32, 37, 300, 2048), ("per_step", "per_step")),
+           (("text layer 0", 128, 283, 300, 512), ("persistent", "per_step")))
 
 
 def _k4_case(rng, B, T, In, H, dtype, dev):
@@ -1319,6 +1331,40 @@ def phase_k4(card: str) -> dict:
                            "bwd": {"max_abs_err": grad_abs, "ms": ms["bwd"],
                                    "plain_ms": ms["plain_bwd"], **bnds["bwd"],
                                    "library_ms": lib["bwd"]}}
+    summary["fwd"]["wide_shapes"], summary["bwd"]["wide_shapes"] = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (name, B, T, In, H), want in K4_WIDE:
+            before = (dict(lstm_layer_train.fwd_routes),
+                      dict(lstm_layer_train.bwd_routes))
+            fwd_err, grad_abs, grad_rel, ms, bnds, lib, _ = _k4_case(
+                rng, B, T, In, H, dtype, dev)
+            routes = (routes_taken(lstm_layer_train.fwd_routes, before[0]),
+                      routes_taken(lstm_layer_train.bwd_routes, before[1]))
+            worst = max(grad_rel.values())
+            log(f"K4 lstm_layer_train {name} B={B} T={T} In={In} H={H} "
+                f"{str(dtype)[6:]}: fwd max|d|={fwd_err:.3e} (tol "
+                f"{K4_FWD_TOL[dtype]:.0e}); worst grad max|d|/max|plain| "
+                f"{worst:.2e} (tol {K4_GRAD_TOL[dtype]:.0e}); routes forward "
+                f"{routes[0]} backward {routes[1]} (designed {want[0]}, "
+                f"{want[1]}); kernel fwd {ms['fwd']:.2f} ms bwd "
+                f"{ms['bwd']:.2f} ms, plain fwd {ms['plain_fwd']:.2f} ms bwd "
+                f"{ms['plain_bwd']:.2f} ms, cuDNN LSTM fwd "
+                f"{fmt_ms(lib['fwd'])} bwd {fmt_ms(lib['bwd'])}, bound fwd "
+                f"{bnds['fwd']['bound_ms']:.4f} ms bwd "
+                f"{bnds['bwd']['bound_ms']:.4f} ms [{card}]")
+            if not (fwd_err <= K4_FWD_TOL[dtype]
+                    and worst <= K4_GRAD_TOL[dtype]):
+                failures.append(f"{name} B={B} {dtype}")
+            if routes != want:
+                failures.append(f"{name} B={B} {dtype}: routes {routes}")
+            key = f"B={B} H={H} {str(dtype)[6:]}"
+            for d in ("fwd", "bwd"):
+                summary[d]["wide_shapes"][key] = {
+                    "route": routes[d == "bwd"], "max_abs_err": (
+                        fwd_err if d == "fwd" else grad_abs),
+                    "ms": ms[d], "plain_ms": ms[f"plain_{d}"],
+                    "bound_ms": bnds[d]["bound_ms"],
+                    "library_ms": lib[d]}
     log(f"K4 routes over the phase: forward {lstm_layer_train.fwd_routes}, "
         f"backward {lstm_layer_train.bwd_routes}")
     if failures:
@@ -3231,8 +3277,9 @@ def phase_configs(card: str) -> dict:
 
 DP_REQUESTS = 37      # odd: the request bucket (64 rows) and the padding split
 DP_LARGE = 128        # a second batch, timed only: 128 rows
-DP_TRAIN_B = 16       # the two-rank train step: 8 rows a rank
-DP_SHORT_FRAMES = 24  # rank 1's rows keep at most this many frames
+DP_TRAIN_B = 16       # the DP train step's global batch
+DP_WORLDS = (2, 4)    # ranks of the DP train step: 8 and 4 rows a rank
+DP_SHORT_FRAMES = 24  # the second half's rows keep at most this many frames
 DP_TIMEOUT = 420      # seconds a rank may take before the phase fails
 
 
@@ -3357,8 +3404,9 @@ def _dp_serving(card: str, model, device: str) -> dict:
 
 
 def _dp_batch(mc, i2w) -> tuple:
-    """(host batch of DP_TRAIN_B rows, caps): rank 1's rows keep at most
-    DP_SHORT_FRAMES frames, so the ranks' batchnorm statistics differ."""
+    """(host batch of DP_TRAIN_B rows, caps): the second half's rows keep
+    at most DP_SHORT_FRAMES frames, so the ranks' batchnorm statistics
+    differ."""
     host = batch_arrays(SyntheticCorpus(mc, i2w, 1, DP_TRAIN_B, SEED + 11,
                                         max_audio_s=8).batch(0))
     half = DP_TRAIN_B // 2
@@ -3530,69 +3578,83 @@ def _nccl_world_one(grad_mb: float) -> float:
 
 
 def _dp_training(card: str, model, device: str) -> dict:
-    """Two ranks' data-parallel train step (gloo on cuda:0 with one card,
-    NCCL over two cards with more) against one process's step on the same
-    DP_TRAIN_B rows, f32, at full width."""
+    """The data-parallel train step at each of DP_WORLDS ranks (NCCL, one
+    card a rank, where there are that many cards; else gloo with the ranks
+    on the cards in turn, all on cuda:0 with one card) against one
+    process's step on the same DP_TRAIN_B rows, f32, at full width."""
     from mmqg_tpu_torch import checkpoint as ckpt_io
 
     mc, params, state, vocab, i2w = model
     params = he_vggish(params)
     host, caps = _dp_batch(mc, i2w)
     half = DP_TRAIN_B // 2
-    log(f"dp: train batch {DP_TRAIN_B} (8 rows a rank), valid frames rank 0 "
-        f"{int(host['frames_len'][:half].sum())}, rank 1 "
-        f"{int(host['frames_len'][half:].sum())}; caps {caps}")
+    log(f"dp: train batch {DP_TRAIN_B}, valid frames rows 0-{half - 1} "
+        f"{int(host['frames_len'][:half].sum())}, rows {half}-"
+        f"{DP_TRAIN_B - 1} {int(host['frames_len'][half:].sum())}; caps "
+        f"{caps}")
     ref = _dp_step((params, state), mc, host, caps, None, device)
-    log(f"dp: world size 1 (one process, 16 rows): step {ref['step_ms']:.1f}"
-        f" ms, K4 launches fwd {ref['launches']['lstm_train_fwd']} bwd "
+    log(f"dp: world size 1 (one process, {DP_TRAIN_B} rows): step "
+        f"{ref['step_ms']:.1f} ms, K4 launches fwd "
+        f"{ref['launches']['lstm_train_fwd']} bwd "
         f"{ref['launches']['lstm_train_bwd']} [{card}]")
-    backend = ("nccl" if device == "cuda" and torch.cuda.device_count() > 1
-               else "gloo")
-    world = 2
+    names = list(_leaf_names(qg_model.param_tree(params_from_numpy(
+        params, state))))
+    out = {"launches": {}, "backend": {}, "step_ms": {"world 1":
+                                                      ref["step_ms"]},
+           "allreduce_ms": {}}
     with tempfile.TemporaryDirectory(prefix="mmqg_dp_") as tmp:
         inputs = Path(tmp) / "inputs.msgpack"
         inputs.write_bytes(ckpt_io.msgpack_serialize({
             "params": params, "model_state": state, "host": host,
             "caps": {k: np.int64(v) for k, v in caps.items()},
             "mc": json.dumps(mc._asdict())}))
-        if device == "cuda":
-            torch.cuda.empty_cache()    # the ranks share the card
-        ranks = _spawn_ranks("dp: train", dp_rank, world, backend, device,
-                             inputs, Path(tmp), DP_TIMEOUT)
-    names = list(_leaf_names(qg_model.param_tree(params_from_numpy(
-        params, state))))
-    for r, out in enumerate(ranks):
-        lines, failed = compare_train_steps(
-            (out["loss"], out["grads"], out["params"], {}),
-            (ref["loss"], ref["grads"], ref["params"], {}), names)
-        log(f"dp: rank {r} ({backend}, world {world}) vs one process: "
-            + lines[0])
-        log(f"  {lines[1]}")
-        log(f"  rank {r}: K4 launches fwd {out['launches']['lstm_train_fwd']}"
-            f" bwd {out['launches']['lstm_train_bwd']}, routes fwd "
-            f"{out['fwd_routes']} bwd {out['bwd_routes']}; step "
-            f"{out['step_ms']:.1f} ms; gradient all-reduce "
-            f"{out['allreduce_ms']:.1f} ms ({out['grad_mb']:.1f} MB); ranks' "
-            f"parameters differ by {out['differ']:.1e} [{card}]")
-        if failed or out["differ"] != 0.0:
-            raise AssertionError(f"dp: train rank {r} is off: see above")
-        check_dp_k4(out, ref)
-    total = {k: sum(o["launches"][k] for o in ranks)
-             for k in ("lstm_train_fwd", "lstm_train_bwd")}
-    if total != {k: world * ref["launches"][k] for k in total}:
-        raise AssertionError(f"dp: K4 launches over the ranks {total}")
-    nccl_ms = None
+        for world in DP_WORLDS:
+            backend = ("nccl" if device == "cuda"
+                       and torch.cuda.device_count() >= world else "gloo")
+            if device == "cuda":
+                torch.cuda.empty_cache()    # the ranks share the card
+            results = Path(tmp) / f"world{world}"
+            results.mkdir()
+            ranks = _spawn_ranks(f"dp: train at {world} ranks", dp_rank,
+                                 world, backend, device, inputs, results,
+                                 DP_TIMEOUT)
+            for r, got in enumerate(ranks):
+                lines, failed = compare_train_steps(
+                    (got["loss"], got["grads"], got["params"], {}),
+                    (ref["loss"], ref["grads"], ref["params"], {}), names)
+                log(f"dp: rank {r} ({backend}, world {world}, "
+                    f"{DP_TRAIN_B // world} rows) vs one process: "
+                    + lines[0])
+                log(f"  {lines[1]}")
+                log(f"  rank {r}: K4 launches fwd "
+                    f"{got['launches']['lstm_train_fwd']} bwd "
+                    f"{got['launches']['lstm_train_bwd']}, routes fwd "
+                    f"{got['fwd_routes']} bwd {got['bwd_routes']}; step "
+                    f"{got['step_ms']:.1f} ms; gradient all-reduce "
+                    f"{got['allreduce_ms']:.1f} ms ({got['grad_mb']:.1f} MB);"
+                    f" ranks' parameters differ by {got['differ']:.1e} "
+                    f"[{card}]")
+                if failed or got["differ"] != 0.0:
+                    raise AssertionError(f"dp: train rank {r} of {world} is "
+                                         "off: see above")
+                check_dp_k4(got, ref)
+            total = {k: sum(o["launches"][k] for o in ranks)
+                     for k in ("lstm_train_fwd", "lstm_train_bwd")}
+            if total != {k: world * ref["launches"][k] for k in total}:
+                raise AssertionError(f"dp: K4 launches over {world} ranks "
+                                     f"{total}")
+            out["launches"][world] = total
+            out["backend"][world] = backend
+            out["step_ms"][f"world {world}"] = float(np.median(
+                [o["step_ms"] for o in ranks]))
+            out["allreduce_ms"][world] = float(np.median(
+                [o["allreduce_ms"] for o in ranks]))
+    out["nccl_world1_ms"] = None
     if device == "cuda":
-        nccl_ms = _nccl_world_one(ref["grad_mb"])
+        out["nccl_world1_ms"] = _nccl_world_one(ref["grad_mb"])
         log(f"dp: NCCL all-reduce of {ref['grad_mb']:.1f} MB at world size "
-            f"1: {nccl_ms:.2f} ms [{card}]")
-    return {"launches": total, "backend": backend,
-            "step_ms": {"world 1": ref["step_ms"],
-                        "world 2": float(np.median([o["step_ms"]
-                                                    for o in ranks]))},
-            "allreduce_ms": float(np.median([o["allreduce_ms"]
-                                             for o in ranks])),
-            "nccl_world1_ms": nccl_ms}
+            f"1: {out['nccl_world1_ms']:.2f} ms [{card}]")
+    return out
 
 
 def phase_dp(card: str, device: str = "cuda") -> dict:
@@ -5260,7 +5322,7 @@ def main() -> None:
          "launches_offline": on_offline("lstm_train_fwd"),
          "launches_train_features": on_features("lstm_train_fwd"),
          "launches_model_axis": on_axis("lstm_train_fwd"),
-         "launches_dp": dp["training"]["launches"]["lstm_train_fwd"],
+         "launches_dp": dp["training"]["launches"][2]["lstm_train_fwd"],
          **k4["fwd"]},
         {"name": "lstm_train_bwd", "route": "cuda",
          "design": "persistent sweep + mma.sync GEMMs",
@@ -5271,7 +5333,7 @@ def main() -> None:
          "launches_offline": on_offline("lstm_train_bwd"),
          "launches_train_features": on_features("lstm_train_bwd"),
          "launches_model_axis": on_axis("lstm_train_bwd"),
-         "launches_dp": dp["training"]["launches"]["lstm_train_bwd"],
+         "launches_dp": dp["training"]["launches"][2]["lstm_train_bwd"],
          **k4["bwd"]},
         {"name": "vggish_conv", "route": "cuda",
          "design": "wgmma implicit GEMM, 3-stage cp.async ring",

@@ -28,7 +28,9 @@
 //       writes h_t in Op and meets the other blocks at grid_barrier.
 //     - fwd_step_kernel, the per-step route (the first design): one launch
 //       a step, the block's slice of Wh reloaded each launch and the
-//       product a 512-long SIMT FMA chain a thread.
+//       product an H-long SIMT FMA chain a thread, staged in slices of
+//       512 so that any H fits (the sweep's blocks cannot all be resident
+//       at H=2048, nor does its f32 Wh slice fit in shared memory there).
 //     h ping-pongs between two Op buffers: hbuf[t % 2] holds h_{t-1} for
 //     step t. Rounding h to Op once, when it is written, is the rounding the
 //     product applies to every read of it.
@@ -465,37 +467,53 @@ fwd_sweep_kernel(Fwd<Op, Emit> p) {
 }
 
 // The per-step route, launch t: the same blocks and cell, the block's slice
-// of Wh reloaded and the product a SIMT FMA chain. Dynamic shared memory
-// (f32): hs (16 x H) and ws (H x 32).
+// of Wh reloaded and the product a SIMT FMA chain. The contraction is
+// staged in slices of at most kStepK (f32 in dynamic shared memory: hs, 16
+// rows of the slice, and ws, the slice x 32 columns, fwd_step_smem bytes),
+// so any H fits; the chain runs k = 0 .. H-1 in order whatever the slices.
+constexpr int kStepK = 512;
+__host__ __device__ constexpr int fwd_step_k(int H) {
+  return H < kStepK ? H : kStepK;
+}
+inline size_t fwd_step_smem(int H) {
+  return sizeof(float) * (size_t)(kRows + kG) * fwd_step_k(H);
+}
+
 template <typename Op, typename Emit>
 __global__ void __launch_bounds__(kThreads)
 fwd_step_kernel(Fwd<Op, Emit> p, int t) {
   extern __shared__ float smem[];
-  const int H = p.H;
+  const int H = p.H, KS = fwd_step_k(H);
   float* hs = smem;
-  float* ws = smem + kRows * H;
+  float* ws = smem + kRows * KS;
   __shared__ float gs[kRows][kG];
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kJ, b0 = blockIdx.y * kRows;
   const Op* h_prev = p.hbuf + (size_t)(t % 2) * p.B * H;
-  for (int i = tid; i < kRows * H; i += kThreads) {
-    const int b = b0 + i / H;
-    hs[i] = b < p.B ? to_f32(h_prev[(size_t)b * H + i % H]) : 0.0f;
-  }
-  for (int i = tid; i < H * kG; i += kThreads) {
-    const int k = i / kG, col = i % kG;
-    ws[i] = to_f32(p.wh[(size_t)k * 4 * H + (col / kJ) * H + j0 + col % kJ]);
-  }
-  __syncthreads();
   const int col = tid % kG;  // gate column within the block
   const int rg = tid / kG;   // rows rg and rg + kRows/2
-  const float* h0p = hs + rg * H;
-  const float* h1p = hs + (rg + kRows / 2) * H;
   float acc0 = 0.0f, acc1 = 0.0f;
-  for (int k = 0; k < H; ++k) {
-    const float w = ws[k * kG + col];
-    acc0 = fmaf(h0p[k], w, acc0);
-    acc1 = fmaf(h1p[k], w, acc1);
+  for (int k0 = 0; k0 < H; k0 += KS) {
+    const int kc = min(KS, H - k0);
+    for (int i = tid; i < kRows * kc; i += kThreads) {
+      const int r = i / kc, k = i % kc, b = b0 + r;
+      hs[r * KS + k] =
+          b < p.B ? to_f32(h_prev[(size_t)b * H + k0 + k]) : 0.0f;
+    }
+    for (int i = tid; i < kc * kG; i += kThreads) {
+      const int k = i / kG, c = i % kG;
+      ws[i] = to_f32(
+          p.wh[(size_t)(k0 + k) * 4 * H + (c / kJ) * H + j0 + c % kJ]);
+    }
+    __syncthreads();
+    const float* h0p = hs + rg * KS;
+    const float* h1p = hs + (rg + kRows / 2) * KS;
+    for (int k = 0; k < kc; ++k) {
+      const float w = ws[k * kG + col];
+      acc0 = fmaf(h0p[k], w, acc0);
+      acc1 = fmaf(h1p[k], w, acc1);
+    }
+    __syncthreads();  // the next slice overwrites hs and ws
   }
   gs[rg][col] = acc0;
   gs[rg + kRows / 2][col] = acc1;
@@ -555,7 +573,7 @@ int lstm_forward(const void* x, const void* wx, const void* bias,
       cudaGetLastError();  // reported here; the next launch must not see it
     return static_cast<int>(err);
   }
-  const size_t smem = sizeof(float) * (size_t)(kRows + kG) * p.H;
+  const size_t smem = fwd_step_smem(p.H);
   err = cudaFuncSetAttribute(fwd_step_kernel<Op, Emit>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -63,6 +63,7 @@ namespace mmqg {
 namespace {
 
 constexpr int kBB = 8;   // batch rows per per-step backward block
+constexpr int kStepG = 4096;  // per-step backward: da columns staged a pass
 constexpr int kPad = 8;  // sweep: row padding (16 bytes in bf16), so the
                          // mma fragment loads hit 32 different banks
 
@@ -135,7 +136,13 @@ __device__ __forceinline__ float cell_bwd(const CellIn& in, float dh_rec,
 // da_{t+1}.Wh^T (dhT at t = T-1), then the cell backward of step t: da_t
 // into ``da`` (and ``da_op``), dc carried in place. At t = -1 only dh0 =
 // da_0.Wh^T is formed. Dynamic shared memory: the operand-rounded da_{t+1}
-// rows of the block, kBB x 4H f32.
+// rows of the block, kBB x min(4H, kStepG) f32, staged a column slice at a
+// time so that any H fits; each lane's sum runs over its columns in order
+// whatever the slices (kStepG is a multiple of 32).
+inline size_t bwd_step_smem(int H) {
+  return sizeof(float) * (size_t)kBB * (4 * H < kStepG ? 4 * H : kStepG);
+}
+
 template <typename Op>
 __global__ void __launch_bounds__(kThreads)
 bwd_step_kernel(float* __restrict__ da, Op* __restrict__ da_op,
@@ -151,23 +158,29 @@ bwd_step_kernel(float* __restrict__ da, Op* __restrict__ da_op,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = blockIdx.x * kJ;
   const int b0 = blockIdx.y * kBB;
-  const int H4 = 4 * H;
+  const int H4 = 4 * H, GS = min(H4, kStepG);
 
   if (t < T - 1) {
-    for (int i = tid; i < kBB * H4; i += kThreads) {
-      const int b = b0 + i / H4;
-      das[i] = b < B ? round_to<Op>(da[((size_t)b * T + t + 1) * H4 + i % H4])
-                     : 0.0f;
-    }
-    __syncthreads();
     const Op* wrow = wh + (size_t)(j0 + warp) * H4;  // Wh[j, :], one warp
     float acc[kBB];
 #pragma unroll
     for (int r = 0; r < kBB; ++r) acc[r] = 0.0f;
-    for (int g = lane; g < H4; g += 32) {
-      const float w = to_f32(wrow[g]);
+    for (int g0 = 0; g0 < H4; g0 += GS) {
+      const int gc = min(GS, H4 - g0);
+      for (int i = tid; i < kBB * gc; i += kThreads) {
+        const int r = i / gc, g = i % gc, b = b0 + r;
+        das[r * GS + g] =
+            b < B ? round_to<Op>(da[((size_t)b * T + t + 1) * H4 + g0 + g])
+                  : 0.0f;
+      }
+      __syncthreads();
+      for (int g = lane; g < gc; g += 32) {
+        const float w = to_f32(wrow[g0 + g]);
 #pragma unroll
-      for (int r = 0; r < kBB; ++r) acc[r] = fmaf(das[r * H4 + g], w, acc[r]);
+        for (int r = 0; r < kBB; ++r)
+          acc[r] = fmaf(das[r * GS + g], w, acc[r]);
+      }
+      __syncthreads();  // the next slice overwrites das
     }
 #pragma unroll
     for (int r = 0; r < kBB; ++r) {
@@ -399,7 +412,7 @@ int backward(const void* x, const void* hprev, const void* c0,
         stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
-    const size_t smem = sizeof(float) * (size_t)kBB * H4;
+    const size_t smem = bwd_step_smem(H);
     err = cudaFuncSetAttribute(bwd_step_kernel<Op>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

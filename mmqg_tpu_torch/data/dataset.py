@@ -82,17 +82,28 @@ def encode_text_fields(config, records: List[Dict], vocab: Dict[str, int],
 
 class QGDataset:
     """One split, read eagerly into padded arrays; ``batches`` yields
-    fixed-shape batches. ``load_media=False`` leaves frames and audio
-    zeroed (text only)."""
+    fixed-shape batches. ``vocab`` and ``index_to_word`` default to the
+    config's files; ``load_media=False`` leaves frames and audio zeroed
+    (text only); the PCM buffer holds ``max_audio_seconds`` (default
+    ``av_max_length``) seconds at the config's rate."""
 
-    def __init__(self, config, questions_file: Path, load_media: bool = True):
+    def __init__(self, config, questions_file: Path,
+                 vocab: Optional[Dict[str, int]] = None,
+                 index_to_word: Optional[Dict[str, str]] = None,
+                 load_media: bool = True,
+                 max_audio_seconds: Optional[int] = None):
         self.config = config
         with open(questions_file) as f:
             self.records: List[Dict] = json.load(f)
-        with open(config.vocab_file) as f:
-            self.vocab: Dict[str, int] = json.load(f)
-        with open(config.index_to_word_file) as f:
-            self.index_to_word: Dict[str, str] = json.load(f)
+        if vocab is None:
+            with open(config.vocab_file) as f:
+                vocab = json.load(f)
+        if index_to_word is None:
+            with open(config.index_to_word_file) as f:
+                index_to_word = json.load(f)
+        self.vocab: Dict[str, int] = vocab
+        self.index_to_word: Dict[str, str] = index_to_word
+        self.load_media = load_media
 
         text = encode_text_fields(config, self.records, self.vocab,
                                   load_media)
@@ -107,8 +118,9 @@ class QGDataset:
         n = len(self.records)
         self.frames = np.zeros((n, Tav, H, W, 3), np.uint8)
         self.frames_len = np.zeros((n,), np.int32)
-        self.audio_pcm = np.zeros((n, Tav * config.audio_sample_rate),
-                                  np.int16)
+        S = ((max_audio_seconds or config.av_max_length)
+             * config.audio_sample_rate)
+        self.audio_pcm = np.zeros((n, S), np.int16)
         self.audio_len = np.zeros((n,), np.int32)
         for i, (fpath, apath) in enumerate(zip(text["frame_paths"],
                                                text["wav_paths"])):
@@ -131,9 +143,11 @@ class QGDataset:
         return len(self.records)
 
     def batches(self, batch_size: int, shuffle: bool = False,
-                rng: Optional[np.random.Generator] = None) -> Iterator[Batch]:
+                rng: Optional[np.random.Generator] = None,
+                drop_last: bool = False) -> Iterator[Batch]:
         """Fixed-shape batches; the tail batch is padded with repeats of its
-        last example, masked out by ``valid``."""
+        last example, masked out by ``valid``, or left out with
+        ``drop_last``."""
         idx = np.arange(len(self.records))
         if shuffle:
             (rng or np.random.default_rng(self.config.seed)).shuffle(idx)
@@ -141,6 +155,8 @@ class QGDataset:
             chunk = idx[s:s + batch_size]
             valid = np.ones(batch_size, bool)
             if len(chunk) < batch_size:
+                if drop_last:
+                    return
                 valid[len(chunk):] = False
                 chunk = np.concatenate([chunk, np.full(
                     batch_size - len(chunk), chunk[-1])])
@@ -156,3 +172,7 @@ class QGDataset:
                 question_id=self.question_id[chunk],
                 valid=valid,
                 questions=[self.questions[j] for j in chunk])
+
+    def num_batches(self, batch_size: int, drop_last: bool = False) -> int:
+        n = len(self.records)
+        return n // batch_size if drop_last else -(-n // batch_size)

@@ -3,10 +3,11 @@
 * the media library, ``native/mmqg_media.cpp``: container demux, audio
   decode and resampling, and seek-decode of video frames by index, through
   the system's libav libraries;
-* the host runtime, ``native/mmqg_host.cpp``: the threaded batch packer
-  that fills a batch's frame and audio buffers from the corpus's ``.npy``
-  and ``.wav`` files while the device runs the previous batch
-  (:func:`pack_batch_async`, for ``data.streaming``).
+* the host runtime, ``native/mmqg_host.cpp`` (:func:`get_lib`): the
+  single-file loaders (:func:`load_wav_mono`, :func:`load_frames`) and
+  the threaded batch packer that fills a batch's frame and audio buffers
+  from the corpus's ``.npy`` and ``.wav`` files while the device runs the
+  previous batch (:func:`pack_batch_async`, for ``data.streaming``).
 
 The C++ sources lie outside both packages and are compiled as they are,
 with g++, into this package's own ``build/native/`` (gitignored) at first
@@ -365,11 +366,11 @@ def write_test_av_mp4(path, seconds: float = 6.0, freq: int = 440, *,
 
 # ------------------------------------------------------ the host runtime
 
-def get_host_lib() -> Optional[ctypes.CDLL]:
-    """The loaded host runtime (``native/mmqg_host.cpp``: the batch
-    packer), built first if missing or stale; None when it cannot be built
-    or loaded here. A concurrent first caller waits for the build, as with
-    :func:`get_media_lib`."""
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded host runtime (``native/mmqg_host.cpp``: the single-file
+    WAV and frame loaders and the batch packer), built first if missing or
+    stale; None when it cannot be built or loaded here. A concurrent first
+    caller waits for the build, as with :func:`get_media_lib`."""
     global _host_lib, _host_tried
     if _host_tried:
         return _host_lib
@@ -389,6 +390,14 @@ def _load_host_lib() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(str(HOST_LIB_PATH))
     except OSError:
         return None
+    lib.mmqg_load_wav_mono.restype = ctypes.c_long
+    lib.mmqg_load_wav_mono.argtypes = [
+        ctypes.c_char_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int16), ctypes.c_long]
+    lib.mmqg_load_frames.restype = ctypes.c_long
+    lib.mmqg_load_frames.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.mmqg_pack_submit.restype = ctypes.c_void_p
     lib.mmqg_pack_submit.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
@@ -403,13 +412,52 @@ def _load_host_lib() -> Optional[ctypes.CDLL]:
     return lib
 
 
+def available() -> bool:
+    """Whether the host runtime is built and loaded."""
+    return get_lib() is not None
+
+
+def load_wav_mono(path, target_rate: int,
+                  max_samples: int) -> Optional[np.ndarray]:
+    """A PCM WAV file as mono int16 at ``target_rate`` (channels averaged,
+    linear resampling), at most ``max_samples`` samples; None when the
+    host runtime is unavailable or the file does not parse (the caller
+    falls back to ``data.wav``)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.zeros((max_samples,), np.int16)
+    n = lib.mmqg_load_wav_mono(
+        str(path).encode(), target_rate,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), max_samples)
+    if n < 0:
+        return None
+    return out[:n]
+
+
+def load_frames(path, t_max: int, h: int, w: int) -> Optional[np.ndarray]:
+    """The first ``t_max`` frames of a uint8 (T, h, w, 3) ``.npy`` file;
+    None when the host runtime is unavailable or the file is not such an
+    array (the caller falls back to ``np.load``)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.zeros((t_max, h, w, 3), np.uint8)
+    n = lib.mmqg_load_frames(
+        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        t_max, h, w)
+    if n < 0:
+        return None
+    return out[:n]
+
+
 class PackHandle:
     """A batch being packed by the native pool's threads."""
 
-    def __init__(self, lib, handle, keep):
+    def __init__(self, lib, handle, arrays):
         self._lib = lib
         self._handle = handle
-        self._keep = keep  # buffers and path strings, alive until wait()
+        self._arrays = arrays  # buffers and path strings, alive until wait()
 
     def wait(self) -> int:
         """Join the pack job; returns the number of items that failed."""
@@ -417,7 +465,7 @@ class PackHandle:
             return 0
         errors = self._lib.mmqg_pack_wait(ctypes.c_void_p(self._handle))
         self._handle = None
-        self._keep = None
+        self._arrays = None
         return errors
 
     def __del__(self):
@@ -440,7 +488,7 @@ def pack_batch_async(frame_paths: Sequence[Optional[str]],
     ``frames`` (n, t_max, h, w, 3) uint8, ``audio`` (n, s_max) int16 and
     the int32 lengths are preallocated and C-contiguous. Call ``wait()``
     before reading them. None when the host runtime is unavailable."""
-    lib = get_host_lib()
+    lib = get_lib()
     if lib is None:
         return None
     # the C++ threads write through raw pointers with C-order strides

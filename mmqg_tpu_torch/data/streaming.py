@@ -24,7 +24,6 @@ from mmqg_tpu_torch.data import native
 from mmqg_tpu_torch.data import wav as wavio
 from mmqg_tpu_torch.data.dataset import Batch, encode_text_fields
 
-PACK_THREADS = 2  # the native pool's threads a batch (the JAX default)
 # batches packed, by route: the native pack pool or the Python loop
 pack_routes = {"native": 0, "python": 0}
 _routes_lock = threading.Lock()
@@ -36,10 +35,19 @@ def _count(route: str) -> None:
 
 
 class StreamingLoader:
-    def __init__(self, config, questions_file: Path, *, batch_size: int,
-                 load_media: bool = True,
+    def __init__(self, config, questions_file: Path,
+                 vocab: Optional[Dict[str, int]] = None,
+                 index_to_word: Optional[Dict[str, str]] = None, *,
+                 batch_size: int, load_media: bool = True,
+                 max_audio_seconds: Optional[int] = None,
+                 pack_threads: int = 2,
                  local_rows: Optional[tuple] = None):
-        """``local_rows=(start, stop)``: pack media only for the batch rows
+        """``vocab`` and ``index_to_word`` default to the config's files;
+        the PCM buffers hold ``max_audio_seconds`` (default
+        ``av_max_length``) seconds at the config's rate; ``pack_threads``:
+        the native pool's threads a batch.
+
+        ``local_rows=(start, stop)``: pack media only for the batch rows
         in [start, stop), the block this process contributes to the
         global batch (``parallel.multihost.loader_local_rows``); the other
         rows' media stay zero (frames_len 1, audio_len 0) and never reach a
@@ -55,12 +63,17 @@ class StreamingLoader:
                                  f"batch_size {batch_size}")
             local_rows = (lo, hi)
         self.local_rows = local_rows
+        self.pack_threads = pack_threads
         with open(questions_file) as f:
             self.records: List[Dict] = json.load(f)
-        with open(config.vocab_file) as f:
-            self.vocab: Dict[str, int] = json.load(f)
-        with open(config.index_to_word_file) as f:
-            self.index_to_word: Dict[str, str] = json.load(f)
+        if vocab is None:
+            with open(config.vocab_file) as f:
+                vocab = json.load(f)
+        if index_to_word is None:
+            with open(config.index_to_word_file) as f:
+                index_to_word = json.load(f)
+        self.vocab: Dict[str, int] = vocab
+        self.index_to_word: Dict[str, str] = index_to_word
 
         text = encode_text_fields(config, self.records, self.vocab,
                                   load_media)
@@ -75,7 +88,8 @@ class StreamingLoader:
 
         self._Tav = config.av_max_length
         self._H = self._W = config.frame_size
-        self._S = config.av_max_length * config.audio_sample_rate
+        self._S = ((max_audio_seconds or config.av_max_length)
+                   * config.audio_sample_rate)
         # three rotating buffers: while the caller holds batch N, N+1 is
         # packed and N-1 may still be in use (the usual two-batch prefetch)
         self._bufs = [self._alloc() for _ in range(3)]
@@ -104,7 +118,7 @@ class StreamingLoader:
         handle = native.pack_batch_async(
             fps, wps, buf["frames"], buf["audio_pcm"], buf["frames_len"],
             buf["audio_len"], target_rate=self.config.audio_sample_rate,
-            n_threads=PACK_THREADS)
+            n_threads=self.pack_threads)
         if handle is not None:
             _count("native")
             return handle
@@ -140,10 +154,11 @@ class StreamingLoader:
 
     def batches(self, batch_size: Optional[int] = None,
                 shuffle: bool = False,
-                rng: Optional[np.random.Generator] = None
-                ) -> Iterator[Batch]:
+                rng: Optional[np.random.Generator] = None,
+                drop_last: bool = False) -> Iterator[Batch]:
         """Fixed-shape batches, the tail padded with repeats of its last
-        example (``valid`` False), with the pack of batch N+1 overlapping
+        example (``valid`` False) or, with ``drop_last``, left out, with
+        the pack of batch N+1 overlapping
         the caller's use of batch N. ``QGDataset.batches``'s signature, so
         a loader drops into ``Trainer`` and ``evaluate``; ``batch_size``,
         if given, must be the loader's (its buffers are preallocated).
@@ -164,6 +179,8 @@ class StreamingLoader:
             chunk = idx[s:s + B]
             valid = np.ones(B, bool)
             if len(chunk) < B:
+                if drop_last:
+                    break
                 valid[len(chunk):] = False
                 chunk = np.concatenate([chunk,
                                         np.full(B - len(chunk), chunk[-1])])

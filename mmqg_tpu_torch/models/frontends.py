@@ -71,17 +71,19 @@ def _resize_matrix(n_in: int, n_out: int, device: str) -> Tensor:
     return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
 
 
-def prepare_frames(frames: Tensor, *, size: int = 112,
+def prepare_frames(frames_u8: Tensor, *, size: int = 112,
                    mean: Tuple[float, float, float] = (0.43216, 0.394666,
                                                        0.37645),
                    std: Tuple[float, float, float] = (0.22803, 0.22145,
                                                       0.216989),
-                   normalize: bool = True) -> Tensor:
+                   normalize: bool = True,
+                   dtype: torch.dtype = torch.float32) -> Tensor:
     """(B, T, H, W, 3) frames (uint8, or float on the same 0-255 scale) ->
-    float32 (B, T, H', W', 3): ``/ 255``, the shortest side resized to
-    ``size`` (H' x W' = int(H * s) x int(W * s), s = size / min(H, W);
-    only when min(H, W) != size), then ``(x - mean) / std``."""
-    x = frames.float() / 255.0
+    ``dtype`` (B, T, H', W', 3), computed in ``dtype``: ``/ 255``, the
+    shortest side resized to ``size`` (H' x W' = int(H * s) x int(W * s),
+    s = size / min(H, W); only when min(H, W) != size), then
+    ``(x - mean) / std``."""
+    x = frames_u8.to(dtype) / 255.0
     B, T, H, W, C = x.shape
     if min(H, W) != size:
         scale = size / min(H, W)
@@ -90,14 +92,14 @@ def prepare_frames(frames: Tensor, *, size: int = 112,
         x = x.reshape(B * T, H, W, C)
         if out_h != H:
             x = torch.einsum("oh,nhwc->nowc",
-                             _resize_matrix(H, out_h, dev), x)
+                             _resize_matrix(H, out_h, dev).to(dtype), x)
         if out_w != W:
             x = torch.einsum("pw,nhwc->nhpc",
-                             _resize_matrix(W, out_w, dev), x)
+                             _resize_matrix(W, out_w, dev).to(dtype), x)
         x = x.reshape(B, T, out_h, out_w, C)
     if normalize:
-        x = ((x - torch.tensor(mean, device=x.device))
-             / torch.tensor(std, device=x.device))
+        x = ((x - torch.tensor(mean, dtype=dtype, device=x.device))
+             / torch.tensor(std, dtype=dtype, device=x.device))
     return x
 
 
@@ -158,10 +160,13 @@ def log_mel_examples(pcm: Tensor, *, sample_rate: int = 16000,
                      lower_hz: float = 125.0, upper_hz: float = 7500.0,
                      log_offset: float = 0.01, frames_per_example: int = 96,
                      max_examples: int = 101,
-                     dtype: torch.dtype = torch.bfloat16) -> Tensor:
+                     dtype: torch.dtype = torch.bfloat16,
+                     spec_dtype: torch.dtype = torch.float32) -> Tensor:
     """(B, S) PCM (int16 or float) -> (B, max_examples, frames_per_example,
     mel_bins) log-mel. Examples past the signal are log(0 + offset); the
-    attention masks them by length."""
+    attention masks them by length. The two products take their operands
+    in ``dtype``; the spectrogram and its magnitude between them are kept
+    in ``spec_dtype``; the log is float32."""
     if pcm.dtype == torch.int16:
         pcm = pcm.float() / 32768.0
     kernels, mel_mat = _bases(window, hop, mel_bins, sample_rate,
@@ -179,7 +184,7 @@ def log_mel_examples(pcm: Tensor, *, sample_rate: int = 16000,
     chunks = pcm.reshape(B, n_chunks, hop)
     frames = torch.cat([chunks[:, i:n_chunks - k + 1 + i] for i in range(k)],
                        dim=-1)                  # (B, n_frames, k * hop)
-    spec = mm(frames, kernels, dtype)          # (B, n_frames, 2F) f32
+    spec = mm(frames, kernels, dtype).to(spec_dtype)  # (B, n_frames, 2F)
     re, im = spec.chunk(2, dim=-1)
     magnitude = torch.sqrt(re * re + im * im + 1e-12)
     mel = mm(magnitude, mel_mat, dtype)        # (B, n_frames, M) f32
@@ -187,9 +192,12 @@ def log_mel_examples(pcm: Tensor, *, sample_rate: int = 16000,
                                                frames_per_example, mel_bins)
 
 
-def audio_num_examples(audio_len_samples: Tensor, *, hop: int = 160,
+def audio_num_examples(audio_len_samples: Tensor, *,
+                       sample_rate: int = 16000, hop: int = 160,
                        window: int = 400, frames_per_example: int = 96,
                        max_examples: int = 101) -> Tensor:
-    """How many whole 0.96 s examples a signal of the given length yields."""
+    """How many whole 0.96 s examples a signal of the given length yields.
+    ``sample_rate`` is accepted and unused, as in the JAX package: the
+    count depends on samples alone."""
     n_frames = torch.clamp((audio_len_samples - window) // hop + 1, min=0)
     return torch.clamp(n_frames // frames_per_example, 0, max_examples)

@@ -139,15 +139,32 @@ def lstm_step(lstm: LSTM, x: Tensor, state: State, *,
     return inp, (torch.stack(hs), torch.stack(cs))
 
 
+def lstm_dims(lstm: LSTM) -> Tuple[int, int]:
+    """(num_layers, hidden_dim) of ``lstm``."""
+    return len(lstm.layers), lstm.hidden_dim
+
+
+def lstm_zero_state(num_layers: int, batch: int, hidden_dim: int,
+                    dtype: torch.dtype = torch.float32,
+                    device=None) -> State:
+    """The zero (h, c), each (num_layers, batch, hidden_dim)."""
+    z = torch.zeros((num_layers, batch, hidden_dim), dtype=dtype,
+                    device=device)
+    return z, z
+
+
 def lstm_scan(lstm: LSTM, xs: Tensor, state: State = None, *,
+              dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None,
               dtype: torch.dtype = torch.bfloat16) -> Tuple[Tensor, State]:
     """Whole sequence, layer by layer, no masking (``layers.lstm_scan``).
+    With a ``generator`` and a rate > 0 (training), every layer's output
+    sequence but the last is dropped out before it feeds the next layer.
     Returns (outputs (B, T, H), final (h, c) each (L, B, H))."""
     B, T, _ = xs.shape
+    L, H = lstm_dims(lstm)
     if state is None:
-        z = torch.zeros((len(lstm.layers), B, lstm.hidden_dim),
-                        device=xs.device)
-        state = (z, z)
+        state = lstm_zero_state(L, B, H, device=xs.device)
     seq = xs
     final_h, final_c = [], []
     for li, layer in enumerate(lstm.layers):
@@ -159,6 +176,8 @@ def lstm_scan(lstm: LSTM, xs: Tensor, state: State = None, *,
         seq = torch.stack(outs, dim=1)
         final_h.append(h)
         final_c.append(c)
+        if generator is not None and dropout_rate > 0.0 and li < L - 1:
+            seq = dropout(seq, dropout_rate, generator)
     return seq, (torch.stack(final_h), torch.stack(final_c))
 
 
@@ -173,21 +192,36 @@ class Conv2d(nn.Module):
         self.b = _frozen(b)   # (Out,)
 
 
-def conv2d(x: Tensor, w: Tensor, b: Tensor, *, padding: str = "VALID",
-           dtype: torch.dtype = torch.bfloat16,
+def _same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: (before, after)."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: Tensor, w: Tensor, b: Tensor, *, stride: int = 1,
+           padding: str = "VALID", dtype: torch.dtype = torch.bfloat16,
            out_dtype: torch.dtype = torch.float32) -> Tensor:
-    """Stride-1 NHWC conv with an HWIO kernel (``layers.conv2d``): runs in
+    """NHWC conv with an HWIO kernel (``layers.conv2d``): runs in
     ``dtype``, the result is cast to ``out_dtype`` and the bias added in
     ``out_dtype`` -- the bias is not fused into the conv, because JAX rounds
-    the conv output before adding it."""
-    kh = w.shape[0]
-    pad = {"VALID": 0, "SAME": kh // 2}[padding]
+    the conv output before adding it. ``padding`` "SAME" pads as XLA does,
+    the odd element after (asymmetric where ``stride`` > 1 needs it)."""
+    kh, kw = w.shape[0], w.shape[1]
+    if padding not in ("VALID", "SAME"):
+        raise ValueError(f"conv2d: no padding {padding!r}")
+    (top, bottom), (left, right) = ((0, 0), (0, 0)) if padding == "VALID" \
+        else (_same_pads(x.shape[1], kh, stride),
+              _same_pads(x.shape[2], kw, stride))
     # NHWC <-> NCHW as views: a contiguous NHWC tensor is an NCHW tensor in
     # channels_last memory, which cuDNN convolves without a copy
     xc = x.to(dtype).permute(0, 3, 1, 2)
     wc = w.to(dtype).permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    y = F.conv2d(xc, wc, padding=pad)
+    if (top, left) == (bottom, right):
+        y = F.conv2d(xc, wc, stride=stride, padding=(top, left))
+    else:
+        y = F.conv2d(F.pad(xc, (left, right, top, bottom)), wc,
+                     stride=stride)
     return y.permute(0, 2, 3, 1).to(out_dtype) + b.to(out_dtype)
 
 
@@ -222,11 +256,18 @@ class _MaxPoolTies(torch.autograd.Function):
         return gx, None
 
 
-def maxpool2d(x: Tensor, window: int) -> Tensor:
-    """Non-overlapping NHWC max pool that drops the ragged edge: the JAX
-    crop + reshape-max, which is max_pool2d with stride = window, with
-    JAX's gradient on ties."""
-    return _MaxPoolTies.apply(x, window)
+def maxpool2d(x: Tensor, window: int,
+              stride: Optional[int] = None) -> Tensor:
+    """NHWC max pool over ``window`` x ``window`` windows, VALID: a window
+    that would cross the edge is dropped. With ``stride`` = ``window`` (the
+    default) the JAX crop + reshape-max, with JAX's gradient on ties;
+    another stride (overlapping windows when smaller) is JAX's
+    ``reduce_window``."""
+    stride = stride or window
+    if stride == window:
+        return _MaxPoolTies.apply(x, window)
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
 
 
 # ------------------------------------------------------------------ batchnorm

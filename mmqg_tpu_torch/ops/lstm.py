@@ -95,9 +95,9 @@ def lstm_seq(xs: Tensor, wx: Tensor, wh: Tensor, b: Tensor, h0: Tensor,
                              f" the kernel takes {shape} {dt}")
         if not t.is_contiguous():
             raise ValueError(f"lstm_seq: {name} is not contiguous")
-    if H % 8 or H > 1024 or T < 1:
-        raise ValueError(f"lstm_seq: kernel needs H % 8 == 0, H <= 1024 and "
-                         f"T >= 1 (H={H}, T={T})")
+    if H % 8 or T < 1:
+        raise ValueError(f"lstm_seq: kernel needs H % 8 == 0 and T >= 1 "
+                         f"(H={H}, T={T})")
     lib = _build.library()
     dev = xs.device
     xproj = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)

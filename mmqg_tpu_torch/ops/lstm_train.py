@@ -113,9 +113,9 @@ def _kernel_args(wx, wh, xs, h0, c0, dtype):
                          "supported")
     B, T, In = xs.shape
     H = wh.shape[0]
-    if H % 8 or H > 1024 or T < 1:
-        raise ValueError(f"lstm_layer_train: kernel needs H % 8 == 0, "
-                         f"H <= 1024 and T >= 1 (H={H}, T={T})")
+    if H % 8 or T < 1:
+        raise ValueError(f"lstm_layer_train: kernel needs H % 8 == 0 and "
+                         f"T >= 1 (H={H}, T={T})")
     x, wxc, whc = (t.to(dtype).contiguous() for t in (xs, wx, wh))
     dev = xs.device
     for name, t, shape, dt in (("xs", x, (B, T, In), dtype),

@@ -34,7 +34,7 @@ import torch.distributed as dist
 from mmqg_tpu_torch.parallel.mesh import padded_rows, row_block
 
 
-def initialize_multihost(coordinator: Optional[str] = None,
+def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None, *,
                          device="cuda", timeout_s: float = 600.0,
@@ -42,7 +42,7 @@ def initialize_multihost(coordinator: Optional[str] = None,
     """Join this process to the process group (``jax.distributed
     .initialize``): NCCL for a CUDA ``device``, gloo for the CPU, or
     ``backend`` (gloo on CUDA tensors stages them through the host: two
-    ranks on one card, which NCCL refuses). With a ``coordinator``
+    ranks on one card, which NCCL refuses). With a ``coordinator_address``
     ("host:port") the group meets there over TCP and
     ``num_processes``/``process_id`` are required; without one they come
     from the environment (``env://``: MASTER_ADDR, MASTER_PORT,
@@ -50,11 +50,11 @@ def initialize_multihost(coordinator: Optional[str] = None,
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     kw = {}
-    if coordinator is not None:
+    if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator needs num_processes and "
                              "process_id")
-        kw = dict(init_method=f"tcp://{coordinator}",
+        kw = dict(init_method=f"tcp://{coordinator_address}",
                   world_size=int(num_processes), rank=int(process_id))
     else:
         kw = dict(init_method="env://")

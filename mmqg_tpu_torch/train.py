@@ -1079,7 +1079,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"data-parallel: the {per_host} workers stream their "
                   "batches, each packing only its own rows' media")
             args.streaming = True
-        native.get_host_lib()  # built once, before the workers look for it
+        native.get_lib()  # built once, before the workers look for it
         if device.type == "cuda":
             from mmqg_tpu_torch.ops import _build
             _build.library()

@@ -56,8 +56,10 @@ def _lstm_args(dev, B=20, T=37, In=300, H=64, seed=0):
 # sweep at the encoders' width (In 300 and 1000), a ragged B that crosses a
 # 16-row tile (at H=256: 32 x 3 blocks, all resident), one step, narrow H;
 # batches larger than one grid of resident blocks, run in row chunks (H=1024
-# at B=20: 128 x 2 blocks; B=130 at H=512: 64 x 9); and the per-step route
-# forced at a shape the sweep takes
+# at B=20: 128 x 2 blocks; B=130 at H=512: 64 x 9); the per-step route
+# forced at a shape the sweep takes; and H=2048, where no row of the sweep's
+# 256 column blocks can be resident, so the per-step route runs (its
+# contraction staged in slices)
 LSTM_ROUTE_CASES = [(20, 37, 300, 64, None, "persistent"),
                     (33, 1, 300, 64, None, "persistent"),
                     (32, 17, 300, 512, None, "persistent"),
@@ -66,7 +68,9 @@ LSTM_ROUTE_CASES = [(20, 37, 300, 64, None, "persistent"),
                     (5, 1, 300, 512, None, "persistent"),
                     (20, 5, 72, 1024, None, "persistent"),
                     (130, 5, 72, 512, None, "persistent"),
-                    (32, 17, 300, 512, "per_step", "per_step")]
+                    (32, 17, 300, 512, "per_step", "per_step"),
+                    (20, 5, 72, 2048, None, "per_step"),
+                    (32, 5, 72, 2048, None, "per_step")]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -261,6 +265,24 @@ def test_lstm_layer_train_backward_per_step_route(dev, dtype, B, H):
     per-step route, which writes the same da (and its bf16 copy for the
     GEMMs); the forward's sweep runs in row chunks."""
     assert _k4_check(dev, B, 5, 72, H, dtype) == [ONE, STEP]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [20, 32])
+def test_lstm_layer_train_at_h2048_steps_both_ways(dev, dtype, B):
+    """H=2048: neither sweep can hold a row of its 256 column blocks (and
+    the f32 slices of Wh exceed shared memory), so the forward and the
+    backward take the per-step routes, which stage the contraction in
+    slices."""
+    assert _k4_check(dev, B, 5, 72, 2048, dtype) == [STEP, STEP]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_train_backward_per_step_route_at_b128(dev, dtype):
+    """B=128 at the encoders' width: the forward's sweep runs in row
+    chunks, the backward's 64 x 8 blocks cannot all be resident and it
+    steps."""
+    assert _k4_check(dev, 128, 17, 300, 512, dtype) == [ONE, STEP]
 
 
 def test_lstm_layer_train_kernel_rejects_what_it_cannot_take(dev):

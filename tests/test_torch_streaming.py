@@ -31,7 +31,7 @@ def route(request, monkeypatch):
         monkeypatch.setattr(jnative, "pack_batch_async",
                             lambda *a, **k: None)
     else:
-        assert native.get_host_lib() is not None
+        assert native.get_lib() is not None
         assert native.HOST_LIB_PATH.parent == native.BUILD_DIR
     return request.param
 
