@@ -31,7 +31,7 @@ from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.decoder import Memories
 from mmqg_tpu_torch.parallel import model_axis
-from mmqg_tpu_torch.utils import prng
+from mmqg_tpu_torch.utils import prng, profiling
 
 Tensor = torch.Tensor
 
@@ -149,6 +149,7 @@ def _step_noise(stream: Tensor, max_len: int, B: int, n: int) -> Tensor:
     return prng.gumbel(keys, (n,)).transpose(0, 1)
 
 
+@profiling.annotate("model.decode")
 def decode_from_memories(model: qg_model.QGModel, mem: Memories,
                          dec_state: L.State, rng: Optional[Tensor] = None, *,
                          strategy: str = "greedy", max_len: int = 21,
@@ -240,6 +241,7 @@ def _whole_vocab(dec, what: str) -> None:
                          "only")
 
 
+@profiling.annotate("model.decode")
 def beam_from_memories(model: qg_model.QGModel, mem: Memories,
                        dec_state: L.State, *, max_len: int = 21,
                        beam_size: int = 4, length_penalty: float = 0.6,
@@ -328,6 +330,8 @@ def sequence_logprob_from_memories(model: qg_model.QGModel, mem: Memories,
         cur = tok
     return total
 
+
+@profiling.annotate("model.encode")
 def encode(model: qg_model.QGModel, mc: qg_model.ModelConfig,
            batch: Dict[str, Tensor], *, audio_cap: Optional[int] = None,
            frames_cap: Optional[int] = None,

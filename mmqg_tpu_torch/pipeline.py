@@ -16,7 +16,11 @@ audio, in; questions out (``mmqg_tpu/pipeline.py``).
 Requests are packed on the host into one fixed-shape batch, with AV buffers
 at the batch's bucket sizes, exactly as the JAX pipeline packs them; the
 batch then goes to ``device`` and through encode and the decode of the
-chosen strategy (``decode.py``). The video entry points prepare each
+chosen strategy (``decode.py``). Under a profiler each part of a call
+is a span (``utils.profiling.annotate``): ``serve.pack``, ``serve.h2d``,
+``model.encode`` and ``model.decode`` (``decode.py``), and the
+finalizer's ``serve.readback``; ``h2d_shipped`` counts the H2D's calls
+and bytes. The video entry points prepare each
 video's spans on the host first (``_prep_video``: salient frames, span
 audio, subtitle contexts), on a thread pool in ``generate_from_videos``,
 and count the audio route that served each video in ``audio_routes``.
@@ -55,7 +59,7 @@ from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
 from mmqg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mmqg_tpu_torch.parallel.replicas import Replicas
-from mmqg_tpu_torch.utils import prng
+from mmqg_tpu_torch.utils import prng, profiling
 from mmqg_tpu_torch.utils.device import resolve_device
 
 
@@ -63,6 +67,9 @@ from mmqg_tpu_torch.utils.device import resolve_device
 # audio: the native decoder, the ffmpeg binary, a staged wav, or none
 audio_routes = {"native": 0, "ffmpeg": 0, "wav": 0, "none": 0}
 _routes_lock = threading.Lock()  # prep pools count from several threads
+
+# host batches shipped to the card by ``_to_device``, and their bytes
+h2d_shipped = {"calls": 0, "bytes": 0}
 
 # the strategies that draw from per-row streams
 SAMPLED = ("sampling", "topk", "topp")
@@ -172,6 +179,7 @@ class QGPipeline:
             b <<= 1
         return b
 
+    @profiling.annotate("serve.pack")
     def _pack(self, contexts: Sequence[str],
               frames: Optional[Sequence[Optional[np.ndarray]]],
               audio: Optional[Sequence[Optional[np.ndarray]]],
@@ -265,9 +273,12 @@ class QGPipeline:
         self.mc = mc._replace(audio_int8_scales=scales)
         return self
 
+    @profiling.annotate("serve.h2d")
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         keys = ("context_ids", "context_len", "frames", "frames_len",
                 "audio_pcm", "audio_len")
+        h2d_shipped["calls"] += 1
+        h2d_shipped["bytes"] += sum(batch[k].nbytes for k in keys)
         return {k: torch.from_numpy(batch[k]).to(self.device) for k in keys}
 
     def _to_words(self, tokens: np.ndarray) -> List[str]:
@@ -361,12 +372,12 @@ class QGPipeline:
 
         if self.replicas is not None:
             # _pack made ``host`` for this call alone
-            gather = self.replicas.map(run, host, owned=True)
-            return lambda: self._to_words(gather())[:n]
+            return self._finalizer(self.replicas.map(run, host, owned=True),
+                                   n)
         rows = host["context_ids"].shape[0]
         toks = run(self.model, self._to_device(host), 0, rows)
         if toks.device.type != "cuda":
-            return lambda: self._to_words(toks.numpy())[:n]
+            return self._finalizer(toks.numpy, n)
         # the tokens' copy to the host and an event go on the stream now, so
         # the finalizer waits for this batch alone: a plain .cpu() there
         # would also wait for every batch dispatched after this one
@@ -376,9 +387,18 @@ class QGPipeline:
         copied = torch.cuda.Event()
         copied.record()
 
-        def finalize() -> List[str]:
+        def fetch() -> np.ndarray:
             copied.synchronize()
-            return self._to_words(host_toks.numpy())[:n]
+            return host_toks.numpy()
+        return self._finalizer(fetch, n)
+
+    def _finalizer(self, fetch: Callable[[], np.ndarray], n: int
+                   ) -> Callable[[], List[str]]:
+        """``generate_async``'s finalizer: the first ``n`` rows of the
+        tokens ``fetch`` waits for, as questions."""
+        @profiling.annotate("serve.readback")
+        def finalize() -> List[str]:
+            return self._to_words(fetch())[:n]
         return finalize
 
     # ------------------------------------------------ raw-video end-to-end

@@ -30,8 +30,11 @@ batches with ``data.streaming``'s pack pool. A ``config.mesh_shape`` of
 (``multihost.Grid``): the model axis stores the state by JAX's
 tensor-parallel rules (``parallel/model_axis.py``), and
 ``--sequence-parallel`` (``--sp-gather-free``) splits the text memory over
-it. ``--profile-dir`` traces one warm step with ``torch.profiler``;
-``--nan-debug`` raises at the first non-finite value
+it. ``--profile-dir`` traces one warm step with ``torch.profiler``, whose
+parts are spans under any profiler (``train.h2d``, ``train.forward``,
+``train.backward``, ``train.optimizer``, ``train.loss_read``; the batch's
+gather ``data.batch``), and ``h2d_shipped`` counts the H2D's calls and
+bytes; ``--nan-debug`` raises at the first non-finite value
 (``utils/profiling.py``). ``--compile-cache`` is left out (nothing is
 compiled ahead). ``Config``,
 ``QGDataset``, BLEU and the pipelining helper are the port's own copies of
@@ -48,7 +51,7 @@ import socket
 import threading
 import time
 from collections import deque
-from contextlib import nullcontext
+from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -128,7 +131,14 @@ def batch_arrays(batch: Batch) -> Dict[str, np.ndarray]:
             "valid": batch.valid}
 
 
+# host batches shipped to the device by ``to_device``, and their bytes
+h2d_shipped = {"calls": 0, "bytes": 0}
+
+
+@profiling.annotate("train.h2d")
 def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, Tensor]:
+    h2d_shipped["calls"] += 1
+    h2d_shipped["bytes"] += sum(v.nbytes for v in arrays.values())
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}
 
@@ -249,11 +259,13 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
         for i in range(A):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             w = mb["valid"].sum().float() / n_all
-            obj, aux = qg_model.loss_fn(
-                ts.model, mc, mb, train=True, generator=generator,
-                dtype=dtype, audio_cap=audio_cap, frames_cap=frames_cap,
-                mem_constraint=mem_constraint, attn_fn=attn_fn)
-            (obj * w).backward()
+            with profiling.annotate("train.forward"):
+                obj, aux = qg_model.loss_fn(
+                    ts.model, mc, mb, train=True, generator=generator,
+                    dtype=dtype, audio_cap=audio_cap, frames_cap=frames_cap,
+                    mem_constraint=mem_constraint, attn_fn=attn_fn)
+            with profiling.annotate("train.backward"):
+                (obj * w).backward()
             qg_model.load_model_state(ts.model, aux["state"])
             parts.append((w, obj.detach(), aux["loss_per_sample"].detach(),
                           aux["loss_per_token"].detach(), aux["n_tokens"]))
@@ -271,40 +283,41 @@ def make_train_step(mc: qg_model.ModelConfig, optimizer: Transform, *,
                 ntok.float()])], group)[0]
             metrics = {"objective": obj, "loss": loss,
                        "loss_per_token": ce / torch.clamp(ntok, min=1.0)}
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                         else p.grad, params)
-        if tp is not None:
-            # each rank's slice of the replicas' whole gradients; the
-            # parameters go back to their slices for the update
-            grads = tp.own_grads(grads)
-            for p in tree_leaves(params):
-                p.grad = None
-            tp.release()
-        shards = ts.shards
-        if shards is not None:
-            grads = shards.reduce_scatter(grads)
-            targets = shards.param_slices()
-        else:
-            targets = params
-            if group is not None:
-                leaves = []
-                tree_map(leaves.append, grads)
-                summed = iter(all_reduce_flat(leaves, group))
-                grads = tree_map(lambda _: next(summed), grads)
-        # sharded, the clip's norm and the metric's sum every process's
-        # slices
-        norm = None
-        if tp is not None:
-            norm = partial(tp.norm_buckets, data_dims=(
-                shards.param_dims if shards is not None else {}),
-                data_group=group)
-        elif shards is not None:
-            norm = shards.global_norm
-        with norm_over(norm) if norm is not None else nullcontext():
-            updates, ts.opt_state = optimizer.update(grads, ts.opt_state,
-                                                     targets)
-            metrics["grad_norm"] = global_norm(grads).detach()
-        apply_updates(targets, updates)
+        with profiling.annotate("train.optimizer"):
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                             else p.grad, params)
+            if tp is not None:
+                # each rank's slice of the replicas' whole gradients; the
+                # parameters go back to their slices for the update
+                grads = tp.own_grads(grads)
+                for p in tree_leaves(params):
+                    p.grad = None
+                tp.release()
+            shards = ts.shards
+            if shards is not None:
+                grads = shards.reduce_scatter(grads)
+                targets = shards.param_slices()
+            else:
+                targets = params
+                if group is not None:
+                    leaves = []
+                    tree_map(leaves.append, grads)
+                    summed = iter(all_reduce_flat(leaves, group))
+                    grads = tree_map(lambda _: next(summed), grads)
+            # sharded, the clip's norm and the metric's sum every process's
+            # slices
+            norm = None
+            if tp is not None:
+                norm = partial(tp.norm_buckets, data_dims=(
+                    shards.param_dims if shards is not None else {}),
+                    data_group=group)
+            elif shards is not None:
+                norm = shards.global_norm
+            with norm_over(norm) if norm is not None else nullcontext():
+                updates, ts.opt_state = optimizer.update(grads, ts.opt_state,
+                                                         targets)
+                metrics["grad_norm"] = global_norm(grads).detach()
+            apply_updates(targets, updates)
         for p in tree_leaves(params):
             p.grad = None
         if shards is not None:
@@ -416,8 +429,8 @@ class Trainer:
 
     ``profile_dir``: a ``torch.profiler`` trace (``utils.profiling
     .trace``) of the first batch whose AV-bucket variant has already run
-    once, so a warm step; the lag-2 backlog is drained first and the loss
-    read inside the trace."""
+    once, so a warm step, from its H2D to its loss read; the lag-2 backlog
+    is drained first."""
 
     def __init__(self, config, mc: qg_model.ModelConfig, emb_weights,
                  train_ds: QGDataset, val_ds: QGDataset, *, device="cuda",
@@ -565,30 +578,29 @@ class Trainer:
             nonlocal total, n
             while len(pending) > k:
                 loss, size = pending.popleft()
-                total += float(loss) * size
+                with profiling.annotate("train.loss_read"):
+                    total += float(loss) * size
                 n += size
 
         for batch in self.train_ds.batches(bs, shuffle=True, rng=rng_np):
             arrays = batch_arrays(batch)
             caps = self.caps_for(arrays)
             variant = tuple(sorted(caps.items()))
-            inputs = to_device(self._local_rows(arrays), self.device)
-            if (self.profile_dir and not self._profiled
-                    and variant in self._steps_used):
-                drain(0)  # the trace holds one step, not the backlog
-                with profiling.trace(self.profile_dir):
-                    with profiling.annotate("train_step"):
-                        self.train_state, metrics = self.train_step(
-                            self.train_state, inputs, self.generator,
-                            **caps)
-                        float(metrics["loss"])  # the device, inside
-                self._profiled = True
-            else:
+            profiled = bool(self.profile_dir and not self._profiled
+                            and variant in self._steps_used)
+            with ExitStack() as traced:
+                if profiled:
+                    drain(0)  # the trace holds one step, not the backlog
+                    traced.enter_context(profiling.trace(self.profile_dir))
+                    traced.enter_context(profiling.annotate("train_step"))
+                inputs = to_device(self._local_rows(arrays), self.device)
                 self.train_state, metrics = self.train_step(
                     self.train_state, inputs, self.generator, **caps)
+                pending.append((metrics["loss"], batch.size))
+                # traced, the step's loss is read inside: the device too
+                drain(0 if profiled else 2)
+            self._profiled |= profiled
             self._steps_used.add(variant)
-            pending.append((metrics["loss"], batch.size))
-            drain(2)
         drain(0)
         return total / max(n, 1)
 

@@ -2,8 +2,9 @@
 
 * :func:`trace` -- a ``torch.profiler`` capture (CPU, and CUDA where a card
   is visible) written as a Chrome/perfetto trace into a directory;
-* :func:`annotate` -- a named region in that trace (``record_function``),
-  as a decorator or a context manager;
+* :func:`annotate` -- a named span in that trace, as a decorator or a
+  context manager: the program's one span entry point, on the profiler's
+  clock while a profiler records and a flag test otherwise;
 * :func:`nan_debugging` -- the stand-in for the reference's
   ``torch.autograd.set_detect_anomaly``: anomaly mode for the backward and
   a forward check that raises at the first non-finite output, naming the
@@ -14,6 +15,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from pathlib import Path
@@ -47,10 +49,52 @@ def trace(log_dir: Path) -> Iterator[torch.profiler.profile]:
             str(log_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str) -> torch.profiler.record_function:
-    """A named region visible in profiler traces (decorator or context
-    manager)."""
-    return torch.profiler.record_function(name)
+# A host range at function scope: unlike ``record_function``'s user scope,
+# the profiler does not mirror it onto the card's stream as a device-side
+# annotation, so a trace's device events stay kernels and copies alone.
+_range = torch._C._profiler._RecordFunctionFast
+_recording = torch.autograd._profiler_enabled
+
+
+class _Span:
+    """What :func:`annotate` returns: opens the range only while a profiler
+    records, tested at each entry, so a function decorated before the
+    profiler started records under it."""
+
+    __slots__ = ("name", "_open")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._open = None
+
+    def __enter__(self) -> "_Span":
+        if _recording():
+            self._open = _range(self.name)
+            self._open.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._open is not None:
+            self._open.__exit__(*exc)
+            self._open = None
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with _range(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+def annotate(name: str) -> _Span:
+    """A named span in profiler traces (``torch.profiler``, so on the clock
+    of the device events it records), as a decorator or a context manager.
+    With no profiler recording it costs a flag test."""
+    return _Span(name)
 
 
 def _non_finite(out) -> bool:

@@ -45,8 +45,9 @@ def test_trainer_profile_dir_traces_one_warm_step(tiny_config, tiny_corpus,
                                                   tmp_path):
     """Mode text (one step variant): batch 0 runs the variant once, batch
     1 is traced inside ``annotate("train_step")``, and the trace holds
-    that region and the step's ops (the K4 autograd Function's forward,
-    whose plain version runs on the CPU)."""
+    that region, the step's spans from its H2D to its loss read and its
+    ops (the K4 autograd Function's forward, whose plain version runs on
+    the CPU)."""
     from mmqg_tpu_torch.train import Trainer
 
     cfg, train_ds, val_ds, mc, emb = _tiny_text(tiny_config, tmp_path)
@@ -57,7 +58,7 @@ def test_trainer_profile_dir_traces_one_warm_step(tiny_config, tiny_corpus,
     tr.fit(1)
     assert tr._profiled and not any("warning" in m for m in logs)
     names = {e.get("name") for e in _events(tmp_path / "trace")}
-    assert "train_step" in names
+    assert {"train_step", "train.h2d", "train.loss_read"} <= names
     assert any(n and n.startswith("aten::") for n in names)
     assert "_LSTMLayerTrain" in names
 
@@ -91,6 +92,187 @@ def test_trace_and_annotate_outside_the_trainer(tmp_path):
     names = {e.get("name") for e in _events(tmp_path)}
     assert {"region", "decorated"} <= names
     assert any(e.name == "region" for e in prof.events())
+
+
+def test_annotate_opens_a_range_only_while_a_profiler_records(monkeypatch):
+    """With no profiler recording no range opens; under one, each entry
+    opens one, in a function decorated before the profiler started too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opened = []
+
+    class Range:
+        def __init__(self, name):
+            opened.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return None
+
+    @profiling.annotate("decorated")
+    def f(x):
+        return x + 1
+
+    monkeypatch.setattr(profiling, "_range", Range)
+    with profiling.annotate("region"):
+        assert f(1) == 2
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("region"):
+            f(1)
+            f(2)
+        f(3)
+    assert opened == ["region", "decorated", "decorated", "decorated"]
+    with profiling.annotate("region"):
+        f(1)
+    assert len(opened) == 4
+
+
+def test_annotate_spans_are_host_ranges_of_the_profiler():
+    """The spans arrive among the profiler's events, one per entry, as host
+    ranges at function scope: not user annotations, which the profiler
+    would mirror onto the card's stream as device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    @profiling.annotate("decorated")
+    def f(x):
+        return x * 2
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with profiling.annotate("region"):
+                f(torch.ones(3))
+    mine = [e for e in prof.events() if e.name in ("region", "decorated")]
+    assert sorted(e.name for e in mine) == ["decorated"] * 3 + ["region"] * 3
+    assert all(e.device_type == DeviceType.CPU and not e.is_user_annotation
+               for e in mine)
+    regions = sorted((e.time_range.start, e.time_range.end)
+                     for e in mine if e.name == "region")
+    for e in mine:
+        if e.name == "decorated":
+            assert any(s <= e.time_range.start and e.time_range.end <= t
+                       for s, t in regions)
+
+
+SERVE_SPANS = ("serve.pack", "serve.h2d", "model.encode", "model.decode",
+               "serve.readback")
+TRAIN_SPANS = ("data.batch", "train.h2d", "train.forward", "train.backward",
+               "train.optimizer", "train.loss_read")
+
+
+def _tiny_pipeline():
+    """A tiny f32 QGPipeline on the CPU and a request of three examples
+    with frames and audio."""
+    from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
+    from mmqg_tpu_torch.pipeline import QGPipeline
+
+    mc = ModelConfig(n_vocab=30, word_emb_dim=8, hidden_dim=16, text_layers=2,
+                     dec_layers=2, video_hidden_dim=16, audio_emb_dim=8,
+                     flatten_dim=10, context_max_length=12, av_max_length=4,
+                     target_steps=5, frame_size=32, mel_frames=16,
+                     mel_bins=16, sample_rate=1600, stft_window=64,
+                     stft_hop=32)
+    params, state = init_params(mc, seed=0)
+    words = ["<pad>", "<start>", "<end>"] + [f"w{i}" for i in range(3, 30)]
+    vocab = {w: i for i, w in enumerate(words)}
+    i2w = {str(i): w for i, w in enumerate(words)}
+    pipe = QGPipeline(None, mc, params, state, vocab, i2w, device="cpu",
+                      dtype=torch.float32)
+    rng = np.random.RandomState(3)
+    contexts = [" ".join(words[3 + (i * 5 + j) % 27] for j in range(3 + i))
+                for i in range(3)]
+    frames = [rng.randint(0, 255, (1 + i, 32, 32, 3)).astype(np.uint8)
+              for i in range(3)]
+    audio = [rng.randint(-3000, 3000, 1600 * (1 + i)).astype(np.int16)
+             for i in range(3)]
+    return pipe, (contexts, frames, audio)
+
+
+def _spans(prof, names):
+    """(name, start, end) of the profiler's events named in ``names``, in
+    the order they opened."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name in names),
+                  key=lambda x: x[1])
+
+
+@pytest.mark.parametrize("strategy", ["greedy", "beam"])
+def test_generate_records_the_serving_spans_in_order(strategy, tmp_path):
+    """One generate() under ``profiling.trace`` records each serving span
+    once, in the order the call runs them, none overlapping the next."""
+    pipe, req = _tiny_pipeline()
+    pipe.generate(*req, strategy=strategy, beam_size=2)
+    with profiling.trace(tmp_path) as prof:
+        questions = pipe.generate(*req, strategy=strategy, beam_size=2)
+    assert len(questions) == 3
+    got = _spans(prof, SERVE_SPANS)
+    assert [n for n, _, _ in got] == list(SERVE_SPANS)
+    assert all(end <= nxt for (_, _, end), (_, nxt, _) in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_trainer_steps_record_the_training_spans(accum, tiny_config,
+                                                 tiny_corpus, tmp_path):
+    """An epoch of ``run_epoch`` under ``profiling.trace``: per step one
+    batch gather, H2D, optimizer and loss read, and a forward and a
+    backward per microbatch; each step's spans in the order it runs
+    them."""
+    from mmqg_tpu_torch.train import Trainer
+
+    cfg, train_ds, val_ds, mc, emb = _tiny_text(tiny_config, tmp_path,
+                                                grad_accum_steps=accum)
+    tr = Trainer(cfg, mc, emb, train_ds, val_ds, device="cpu",
+                 log_fn=lambda *a: None)
+    steps = train_ds.num_batches(cfg.batch_size)
+    with profiling.trace(tmp_path / "trace") as prof:
+        tr.run_epoch(0)
+    got = _spans(prof, TRAIN_SPANS)
+    counts = {n: sum(g[0] == n for g in got) for n in TRAIN_SPANS}
+    assert counts == {"data.batch": steps, "train.h2d": steps,
+                      "train.forward": steps * accum,
+                      "train.backward": steps * accum,
+                      "train.optimizer": steps, "train.loss_read": steps}
+    first = [n for n, _, _ in got][:3 + 2 * accum]
+    assert first == (["data.batch", "train.h2d"]
+                     + ["train.forward", "train.backward"] * accum
+                     + ["train.optimizer"])
+
+
+@pytest.mark.parametrize("path", ["serve", "train"])
+def test_h2d_counters_count_the_shipped_bytes(path, monkeypatch):
+    """``pipeline.h2d_shipped`` and ``train.h2d_shipped`` count the calls
+    of their H2D and the ``nbytes`` of the arrays each shipped."""
+    from mmqg_tpu_torch import pipeline as PL
+    from mmqg_tpu_torch import train as TR
+
+    if path == "serve":
+        pipe, req = _tiny_pipeline()
+        host = pipe._pack(*req)
+        keys = ("context_ids", "context_len", "frames", "frames_len",
+                "audio_pcm", "audio_len")
+        want = sum(host[k].nbytes for k in keys)
+        counter = {"calls": 0, "bytes": 0}
+        monkeypatch.setattr(PL, "h2d_shipped", counter)
+        pipe.generate(*req)
+        pipe.generate(*req)
+    else:
+        rng = np.random.RandomState(0)
+        arrays = {"frames": rng.randint(0, 255, (2, 3, 4, 4, 3)).astype(
+                      np.uint8),
+                  "audio_pcm": rng.randint(-9, 9, (2, 50)).astype(np.int16),
+                  "target_ids": np.zeros((2, 5), np.int32),
+                  "valid": np.ones(2, bool)}
+        want = sum(v.nbytes for v in arrays.values())
+        counter = {"calls": 0, "bytes": 0}
+        monkeypatch.setattr(TR, "h2d_shipped", counter)
+        shipped = TR.to_device(arrays, "cpu")
+        TR.to_device(arrays, "cpu")
+        assert sum(t.numel() * t.element_size()
+                   for t in shipped.values()) == want
+    assert counter == {"calls": 2, "bytes": 2 * want}
 
 
 def _nan_model():
