@@ -22,6 +22,8 @@ serves off the CPU:
 Layout:
   pipeline.py       QGPipeline: pack requests, encode, decode, detokenise;
                     calibrate_audio_int8 (static int8 audio scales)
+  staging.py        the serving batch's reused page-locked host blocks
+                    and their asynchronous copies to the card
   decode.py         AV buckets, greedy decode_from_memories, decode_batch
   train.py          train and validate steps, Trainer, the training CLI
   optim.py          optax's optimizers and schedules, in optax's state layout

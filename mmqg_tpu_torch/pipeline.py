@@ -20,7 +20,10 @@ chosen strategy (``decode.py``). Under a profiler each part of a call
 is a span (``utils.profiling.annotate``): ``serve.pack``, ``serve.h2d``,
 ``model.encode`` and ``model.decode`` (``decode.py``), and the
 finalizer's ``serve.readback``; ``h2d_shipped`` counts the H2D's calls
-and bytes. The video entry points prepare each
+and bytes. On the card the batch is packed straight into reused page-locked
+blocks and shipped with asynchronous copies (``staging.py``);
+``h2d_staged`` counts how each H2D shipped and the blocks allocated. The
+video entry points prepare each
 video's spans on the host first (``_prep_video``: salient frames, span
 audio, subtitle contexts), on a thread pool in ``generate_from_videos``,
 and count the audio route that served each video in ``audio_routes``.
@@ -59,6 +62,7 @@ from mmqg_tpu_torch.data.vocab import pad_to
 from mmqg_tpu_torch.models import frontends, qg_model
 from mmqg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mmqg_tpu_torch.parallel.replicas import Replicas
+from mmqg_tpu_torch.staging import FRESH, HostStaging
 from mmqg_tpu_torch.utils import prng, profiling
 from mmqg_tpu_torch.utils.device import resolve_device
 
@@ -70,6 +74,9 @@ _routes_lock = threading.Lock()  # prep pools count from several threads
 
 # host batches shipped to the card by ``_to_device``, and their bytes
 h2d_shipped = {"calls": 0, "bytes": 0}
+# ``_to_device``'s calls by how they shipped (from page-locked staging with
+# asynchronous copies, or pageable), and the staging blocks allocated
+h2d_staged = {"pinned": 0, "pageable": 0, "allocated": 0}
 
 # the strategies that draw from per-row streams
 SAMPLED = ("sampling", "topk", "topp")
@@ -80,6 +87,11 @@ MAX_SAMPLED_JOBS = 1 << 16
 def count_audio_route(route: str) -> None:
     with _routes_lock:
         audio_routes[route] += 1
+
+
+def _pinned_block(nbytes: int) -> torch.Tensor:
+    h2d_staged["allocated"] += 1
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
 
 
 def row_seed_array(rows: int, n: int,
@@ -118,6 +130,10 @@ class QGPipeline:
         self.vocab = vocab
         self.index_to_word = index_to_word
         self.replicas: Optional[Replicas] = None
+        # the serving batch's host buffers: reused page-locked blocks on
+        # the card, new numpy arrays on the CPU
+        self._staging = (HostStaging(_pinned_block)
+                         if self.device.type == "cuda" else None)
 
     # ---------------------------------------------------------- multi-device
     def shard(self, mesh: Optional[Mesh] = None,
@@ -187,7 +203,10 @@ class QGPipeline:
               audio_cap: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Pad and pack a request into one fixed-shape host batch, with AV
         buffers at the batch's bucket sizes (or pinned by the caps) --
-        byte for byte the JAX pipeline's ``_pack``."""
+        byte for byte the JAX pipeline's ``_pack``. On the card the six
+        arrays ``_to_device`` ships live in reused page-locked blocks
+        (``staging.py``), held for this batch while any view of them is
+        alive."""
         mc = self.mc
         n = len(contexts)
         rows = self._batch_bucket(n)
@@ -223,13 +242,22 @@ class QGPipeline:
             # a pinned cap may undercut the natural bucket: the length mask
             # must not count examples past the shipped prefix
             np.minimum(a_lens, s_need, out=a_lens)
+        # the frames and samples written into each row; the rest is zero
+        f_keep = np.where([frames is not None and i < n
+                           and frames[i] is not None for i in range(rows)],
+                          f_lens, 0)
+        a_keep = np.where([p is not None for p in pcms],
+                          np.minimum(a_lens, s_need), 0)
 
+        out = self._staging.lease() if self._staging is not None else FRESH
         batch = {
             "context_ids": np.zeros((rows, Lc), np.int32),
             "context_len": np.ones((rows,), np.int32),
-            "frames": np.zeros((rows, fcap, H, W, 3), np.uint8),
+            "frames": out.array("frames", (rows, fcap, H, W, 3), np.uint8,
+                                f_keep),
             "frames_len": f_lens,
-            "audio_pcm": np.zeros((rows, s_need), np.int16),
+            "audio_pcm": out.array("audio_pcm", (rows, s_need), np.int16,
+                                   a_keep),
             "audio_len": a_lens,
             "target_ids": np.zeros((rows, mc.target_steps), np.int32),
             "target_len": np.ones((rows,), np.int32),
@@ -240,12 +268,12 @@ class QGPipeline:
                               if w in self.vocab], np.int32)
             batch["context_ids"][i] = pad_to(ids, Lc)
             batch["context_len"][i] = max(1, min(len(ids), Lc))
-            if frames is not None and frames[i] is not None:
-                t = f_lens[i]
-                batch["frames"][i, :t] = frames[i][:t]
-            if pcms[i] is not None:
-                s = min(a_lens[i], s_need)
-                batch["audio_pcm"][i, :s] = pcms[i][:s]
+        out.copy([(batch["frames"][i, :t], frames[i][:t])
+                  for i, t in enumerate(f_keep) if t]
+                 + [(batch["audio_pcm"][i, :s], pcms[i][:s])
+                    for i, s in enumerate(a_keep) if s])
+        for k in ("context_ids", "context_len", "frames_len", "audio_len"):
+            batch[k] = out.put(k, batch[k])
         return batch
 
     def calibrate_audio_int8(self, audio: Sequence[np.ndarray],
@@ -279,7 +307,13 @@ class QGPipeline:
                 "audio_pcm", "audio_len")
         h2d_shipped["calls"] += 1
         h2d_shipped["bytes"] += sum(batch[k].nbytes for k in keys)
-        return {k: torch.from_numpy(batch[k]).to(self.device) for k in keys}
+        shipped = (self._staging.ship([batch[k] for k in keys], self.device)
+                   if self._staging is not None else None)
+        h2d_staged["pageable" if shipped is None else "pinned"] += 1
+        if shipped is None:
+            shipped = [torch.from_numpy(batch[k]).to(self.device)
+                       for k in keys]
+        return dict(zip(keys, shipped))
 
     def _to_words(self, tokens: np.ndarray) -> List[str]:
         return [" ".join(ws) for ws in

@@ -16,6 +16,7 @@ from mmqg_tpu.pipeline import QGPipeline as JaxPipeline
 from mmqg_tpu_torch import decode as DEC
 from mmqg_tpu_torch.models import qg_model as TQ
 from mmqg_tpu_torch.pipeline import QGPipeline, row_seed_array
+from mmqg_tpu_torch.staging import HostStaging, _Held
 from mmqg_tpu_torch.utils import prng
 from tests.torch_port_fixtures import tiny_model
 
@@ -56,22 +57,89 @@ def _requests(cfg, n, seed):
     return contexts, frames, audio
 
 
-@pytest.mark.parametrize("n,seed,caps", [(1, 0, {}), (3, 1, {}), (5, 2, {}),
-                                         (4, 3, {"frames_cap": 2}),
-                                         (4, 4, {"audio_cap": 1}),
-                                         (2, 5, {"frames_cap": 9,
-                                                 "audio_cap": 9})])
-def test_pack_matches_jax_byte_for_byte(pipes, tiny_config, n, seed, caps):
-    jax_pipe, port, _ = pipes
-    req = _requests(tiny_config, n, seed)
-    ref = jax_pipe._pack(*req, **caps)
-    got = port._pack(*req, **caps)
+PACK_CASES = [(1, 0, {}), (3, 1, {}), (5, 2, {}), (4, 3, {"frames_cap": 2}),
+              (4, 4, {"audio_cap": 1}), (2, 5, {"frames_cap": 9,
+                                                "audio_cap": 9})]
+
+
+def _same_bytes(got, ref):
     assert set(got) == set(ref)
     for k in ref:
         assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
         assert got[k].tobytes() == ref[k].tobytes(), k
+
+
+def _stale_block(nbytes):
+    """A reused block's worst case: every byte non-zero."""
+    return torch.full((nbytes,), 0xAB, dtype=torch.uint8)
+
+
+@pytest.fixture
+def staged(pipes):
+    """The port pipeline packing through ``HostStaging`` (the card's write
+    path) into blocks that start out stale."""
+    port = pipes[1]
+    port._staging = HostStaging(_stale_block)
+    try:
+        yield port
+    finally:
+        port._staging = None
+
+
+@pytest.mark.parametrize("n,seed,caps", PACK_CASES)
+def test_pack_matches_jax_byte_for_byte(pipes, tiny_config, n, seed, caps):
+    jax_pipe, port, _ = pipes
+    req = _requests(tiny_config, n, seed)
+    _same_bytes(port._pack(*req, **caps), jax_pipe._pack(*req, **caps))
     for m in range(1, 70):
         assert port._batch_bucket(m) == jax_pipe._batch_bucket(m)
+
+
+@pytest.mark.parametrize("n,seed,caps", PACK_CASES)
+def test_pack_into_stale_staging_matches_jax(pipes, staged, tiny_config, n,
+                                             seed, caps):
+    """The same cases packed into blocks pre-filled with 0xAB: every byte
+    the JAX pipeline leaves zero is written zero."""
+    req = _requests(tiny_config, n, seed)
+    got = staged._pack(*req, **caps)
+    assert all(isinstance(got[k].base, _Held) for k in
+               ("context_ids", "context_len", "frames", "frames_len",
+                "audio_pcm", "audio_len"))
+    _same_bytes(got, pipes[0]._pack(*req, **caps))
+
+
+def test_reused_staging_zeroes_the_stale_tails(pipes, staged, tiny_config):
+    """A batch of long frames and audio, then shorter ones into the same
+    blocks: the tails the long batch wrote read zero. A batch whose arrays
+    are still held keeps its blocks: the next pack takes another slot."""
+    jax_pipe = pipes[0]
+    rate = tiny_config.audio_sample_rate
+    rng = np.random.RandomState(12)
+    fs = tiny_config.frame_size
+    contexts = ["w3 w4 w5 w6 w7 w8 w9 w10 w11 w12 w13 w14"] * 4
+    frames = [rng.randint(1, 256, (3, fs, fs, 3), np.uint8) for _ in range(4)]
+    audio = [rng.randint(1, 3000, 3 * rate).astype(np.int16)
+             for _ in range(4)]
+    long = (contexts, frames, audio)
+    shorter = (["w3", "w5 w6", "", "w4"], [frames[0][:1], None,
+                                           frames[2][:2], frames[3][:1]],
+               [audio[0][:10], audio[1][:rate], None, audio[3][:40]])
+    caps = {"frames_cap": 3, "audio_cap": 3}        # the same layouts
+    first = staged._pack(*long, **caps)
+    _same_bytes(first, jax_pipe._pack(*long, **caps))
+    held = first["frames"][1:]
+    del first
+    second = staged._pack(*shorter, **caps)         # a second slot
+    assert len(staged._staging._slots) == 2
+    _same_bytes(second, jax_pipe._pack(*shorter, **caps))
+    assert held.tobytes() == frames[1].tobytes() + b"".join(
+        f.tobytes() for f in frames[2:])
+    del held, second
+    for req in (shorter, long, (shorter[0][:3],) + tuple(
+            x[:3] for x in shorter[1:]), shorter):
+        _same_bytes(staged._pack(*req, **caps), jax_pipe._pack(*req, **caps))
+        _same_bytes(staged._pack(*req), jax_pipe._pack(*req))
+    assert len(staged._staging._slots) == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -275,6 +275,27 @@ def test_h2d_counters_count_the_shipped_bytes(path, monkeypatch):
     assert counter == {"calls": 2, "bytes": 2 * want}
 
 
+def test_cpu_pipeline_counts_pageable_h2d(monkeypatch):
+    """``pipeline.h2d_staged``: a CPU pipeline packs into new numpy arrays
+    and ships every ``_to_device`` call pageable, allocating no staging;
+    ``h2d_shipped`` counts the same calls."""
+    from mmqg_tpu_torch import pipeline as PL
+
+    pipe, req = _tiny_pipeline()
+    staged = {"pinned": 0, "pageable": 0, "allocated": 0}
+    shipped = {"calls": 0, "bytes": 0}
+    monkeypatch.setattr(PL, "h2d_staged", staged)
+    monkeypatch.setattr(PL, "h2d_shipped", shipped)
+    pipe.generate(*req)
+    pipe.generate_async(*req, strategy="beam", beam_size=2)()
+    host = pipe._pack(*req)
+    pipe._to_device(host)
+    assert pipe._staging is None
+    assert all(v.base is None for v in host.values())
+    assert staged == {"pinned": 0, "pageable": 3, "allocated": 0}
+    assert shipped["calls"] == 3
+
+
 def _nan_model():
     from mmqg_tpu_torch.compat.from_jax import params_from_numpy
     from mmqg_tpu_torch.models import qg_model as TQ
