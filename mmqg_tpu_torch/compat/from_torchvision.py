@@ -10,8 +10,9 @@ conv, mid BN, ReLU, temporal conv) -- keys ``convN.0.0`` (spatial),
 ``convN.0.1`` (mid BN), ``convN.0.3`` (temporal), ``convN.1`` (the block's
 BN); ``layer{2,3,4}.0.downsample.{0,1}``; ``fc``. A Conv3d weight (O, I,
 kT, kH, kW) becomes (kT, kH, kW, I, O); the convs have no bias. The trees
-are those of ``models.video_resnet.init_numpy`` (numpy float32), which
-``compat.from_jax.params_from_numpy`` builds. Mappings of name -> array
+are those of ``models.video_resnet.init_numpy`` (numpy float32), at
+torchvision's widths, so the released ``r2plus1d_18`` file's fit them;
+``compat.from_jax.params_from_numpy`` builds them. Mappings of name -> array
 (call ``.numpy()`` on torch tensors first).
 """
 

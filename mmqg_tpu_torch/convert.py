@@ -169,9 +169,11 @@ def vggish_shapes(mel_frames: int = 96, mel_bins: int = 64,
 
 def r2plus1d_18_shapes(num_classes: int = 400
                        ) -> Iterator[Tuple[str, tuple]]:
-    """torchvision ``r2plus1d_18``'s state_dict names, with the shapes of
-    the port's R(2+1)D-18 tree (``video_resnet.init_numpy``), the inverse
-    of ``from_torchvision.import_video_resnet``."""
+    """torchvision ``r2plus1d_18``'s state_dict names and shapes, those of
+    the released file and of the port's R(2+1)D-18 tree
+    (``video_resnet.init_numpy``), the inverse of
+    ``from_torchvision.import_video_resnet``: each block's two (2+1)D convs
+    share the midplanes of its input and output channels."""
     def conv(key, cin, cout, k):
         yield f"{key}.weight", (cout, cin) + k
 
@@ -188,8 +190,8 @@ def r2plus1d_18_shapes(num_classes: int = 400
     for si, cout in enumerate(video_resnet.STAGES):
         for bi in range(2):
             pre = f"layer{si + 1}.{bi}"
+            m = video_resnet.midplanes(cin, cout)
             for cn, a in (("conv1", cin), ("conv2", cout)):
-                m = video_resnet.midplanes(a, cout)
                 yield from conv(f"{pre}.{cn}.0.0", a, m, (1, 3, 3))
                 yield from bn(f"{pre}.{cn}.0.1", m)
                 yield from conv(f"{pre}.{cn}.0.3", m, cout, (3, 1, 1))

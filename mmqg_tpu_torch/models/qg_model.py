@@ -10,7 +10,8 @@ training (``encode(train=True)``, ``loss_fn``):
                  (one AV vector a step, no attention)
   video_encoder  conv_lstm (the conv pyramid and an LSTM, K1/K4) or resnet
                  (R(2+1)D-18 on cuDNN conv3d; ``frontends.prepare_frames``
-                 in, memories at a stride of 8 frames)
+                 in, memories at a stride of 8 frames; spans
+                 ``video.prepare`` and ``video.trunk``)
   remat_video    recompute the video tower in the backward pass
 """
 
@@ -38,6 +39,7 @@ from mmqg_tpu_torch.models.video_encoder import VideoEncoder
 from mmqg_tpu_torch.models.video_resnet import VideoResNet
 from mmqg_tpu_torch.optim import tree_map
 from mmqg_tpu_torch.parallel import model_axis
+from mmqg_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -352,14 +354,17 @@ def _video(model: QGModel, mc: ModelConfig, frames: Tensor,
 
     if mc.video_encoder == "resnet":
         # 3-D convs mix time: padded frames are zeroed after normalisation
-        prepared = frontends.prepare_frames(
-            frames, size=mc.frame_size, mean=mc.vid_mean, std=mc.vid_std,
-            normalize=mc.normalize_video)
-        live = (torch.arange(prepared.shape[1], device=prepared.device)
-                [None, :] < frames_len[:, None])
-        prepared = prepared * live[:, :, None, None, None].to(prepared.dtype)
-        enc, state = tower(lambda x: venc.temporal(x, train=train,
-                                                   dtype=dtype), prepared)
+        with profiling.annotate("video.prepare"):
+            prepared = frontends.prepare_frames(
+                frames, size=mc.frame_size, mean=mc.vid_mean,
+                std=mc.vid_std, normalize=mc.normalize_video)
+            live = (torch.arange(prepared.shape[1], device=prepared.device)
+                    [None, :] < frames_len[:, None])
+            prepared = prepared * live[:, :, None, None, None].to(
+                prepared.dtype)
+        with profiling.annotate("video.trunk"):
+            enc, state = tower(lambda x: venc.temporal(x, train=train,
+                                                       dtype=dtype), prepared)
         # the trunk strides time by 8: ceil(len / 8) memory steps
         return (enc, torch.clamp(video_resnet.temporal_out_len(frames_len),
                                  min=1), state)

@@ -3,7 +3,13 @@
 
 Every 3-D conv is a spatial (1, k, k) conv and a temporal (k, 1, 1) conv
 with M = floor(t d^2 Cin Cout / (d^2 Cin + t Cout)) midplanes and batchnorm
-+ ReLU between them:
++ ReLU between them. A basic block computes M once, from its input and
+output channels, and gives both of its (2+1)D convs that width, as
+torchvision's ``BasicBlock`` does, so ``init_numpy`` draws the published
+``r2plus1d_18`` (31,300,125 parameters without a head): conv2 of the first
+block of stages 2-4 is 230, 460 and 921 wide. The JAX package's ``init``
+draws M(planes, planes) there (288, 576, 1152); ``build`` follows each
+leaf's shape, so its trees still build and run here.
 
   stem: (1, 7, 7) 3 -> 45 stride (1, 2, 2), bn, relu,
         (3, 1, 1) 45 -> 64, bn, relu
@@ -21,6 +27,13 @@ optimizer's leaves; each conv casts its weight to the compute dtype and
 lays it out as cuDNN reads it in that one copy. (A float64 model run with
 ``dtype=torch.float64`` stays in float64 throughout: the tests' exact
 reference.)
+
+Counters, for the benchmark's readers: ``convs`` counts the trunks run
+and their convs by channel alignment (``aligned``: input and output
+channels both multiples of 8, which cuDNN's bf16 tensor-core kernels
+need; ``unaligned``: the rest, 14 of the published 37), and
+``weight_casts`` the per-call weight casts of ``Conv3d.forward`` and the
+bytes they write.
 
 Casts follow the JAX package: a conv takes its input and weight in the
 compute dtype and its result is cast to float32; batchnorm runs in float32;
@@ -50,6 +63,9 @@ STAGES = (64, 128, 256, 512)
 # stages 2-4 each stride time by 2 (the stem does not)
 TEMPORAL_DOWNSAMPLE = 8
 
+convs = {"trunks": 0, "aligned": 0, "unaligned": 0}
+weight_casts = {"calls": 0, "bytes": 0}
+
 
 def midplanes(cin: int, cout: int, kt: int = 3, ks: int = 3) -> int:
     return (kt * ks * ks * cin * cout) // (ks * ks * cin + kt * cout)
@@ -74,9 +90,13 @@ class Conv3d(nn.Module):
         """(B, T, H, W, In) -> (B, T', H', W', Out) in ``dtype``: the
         batchnorm that always follows takes it to float32, as JAX's
         ``astype(float32)`` of the conv output does."""
-        kt, kh, kw = self.w.shape[:3]
+        kt, kh, kw, cin, cout = self.w.shape
         w = self.w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
+        convs["aligned" if cin % 8 == 0 and cout % 8 == 0
+              else "unaligned"] += 1
+        weight_casts["calls"] += 1
+        weight_casts["bytes"] += w.numel() * w.element_size()
         y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), w, stride=stride,
                      padding=(kt // 2, kh // 2, kw // 2))
         return y.permute(0, 2, 3, 4, 1)
@@ -146,6 +166,7 @@ class VideoResNet(nn.Module):
               dtype: torch.dtype = torch.bfloat16) -> Tuple[Tensor, Dict]:
         """(B, T, H, W, 3) float clips -> ((B, ceil(T / 8), H', W', 512)
         float32, new state)."""
+        convs["trunks"] += 1
         x, sbn = _bn(self.stem_bn, self.stem_s(clips, (1, 2, 2), dtype),
                      train, relu=True)
         x, sbn2 = _bn(self.stem_bn2, self.stem_t(x, (1, 1, 1), dtype), train,
@@ -252,7 +273,8 @@ def build(params: Dict, state: Dict, t) -> VideoResNet:
 
 def init_numpy(rng, embed_dim: Optional[int] = None,
                in_channels: int = 3) -> Tuple[Dict, Dict]:
-    """Random (params, state) in ``video_resnet.init``'s pytrees, numpy
+    """Random (params, state) in ``video_resnet.init``'s pytrees at
+    torchvision's ``r2plus1d_18`` widths (the module docstring), numpy
     float32 from ``rng`` (a ``np.random.RandomState``): torch-default
     uniform conv weights (bound 1 / sqrt(fan_in)), identity batchnorm, a
     Xavier-uniform ``fc`` head of ``embed_dim`` with N(0, 1) bias when it
@@ -269,8 +291,7 @@ def init_numpy(rng, embed_dim: Optional[int] = None,
                  "var": np.ones(c, np.float32),
                  "count": np.zeros((), np.float32)})
 
-    def c2p1(cin, cout):
-        m = midplanes(cin, cout)
+    def c2p1(cin, cout, m):
         bp, bs = bn(m)
         return ({"spatial": conv(cin, m, 1, 3, 3),
                  "temporal": conv(m, cout, 3, 1, 1), "bn_mid": bp},
@@ -286,8 +307,9 @@ def init_numpy(rng, embed_dim: Optional[int] = None,
         sp, ss = [], []
         for bi in range(2):
             bp, bs = {}, {}
-            bp["conv1"], bs["conv1"] = c2p1(cin, cout)
-            bp["conv2"], bs["conv2"] = c2p1(cout, cout)
+            m = midplanes(cin, cout)
+            bp["conv1"], bs["conv1"] = c2p1(cin, cout, m)
+            bp["conv2"], bs["conv2"] = c2p1(cout, cout, m)
             bp["bn1"], bs["bn1"] = bn(cout)
             bp["bn2"], bs["bn2"] = bn(cout)
             if bi == 0 and si > 0:

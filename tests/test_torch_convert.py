@@ -147,20 +147,24 @@ def test_resnet_on_a_conv_lstm_config_raises_as_jax(dry, tmp_path):
 
 
 def test_a_released_resnet_of_other_widths_is_refused(dry, monkeypatch):
-    """A state dict whose shapes do not fit the model's R(2+1)D-18 (as
-    torchvision's conv2 midplanes in the first block of a stage would)
+    """The released layout loads: the stand-in has torchvision's shapes
+    (conv2 of layer2.0 230 wide, the block's one midplanes) and passes the
+    check. A state dict whose shapes do not fit the model's R(2+1)D-18
+    (here the JAX package's 288-wide conv2, midplanes(planes, planes))
     stops the conversion, naming the tensor, before any checkpoint is
     written."""
     path = dry["root"] / "r2plus1d_18-standin.pth"
     sd = _sd(path)
     w = sd["layer2.0.conv2.0.0.weight"]
-    sd["layer2.0.conv2.0.0.weight"] = np.zeros((230,) + w.shape[1:],
+    assert w.shape == (230, 128, 1, 3, 3)
+    convert._check_resnet_shapes(sd)
+    sd["layer2.0.conv2.0.0.weight"] = np.zeros((288,) + w.shape[1:],
                                                np.float32)
     monkeypatch.setattr(convert, "_load_state_dict", lambda p: sd)
     with pytest.raises(SystemExit, match=r"resnet: layer2\.0\.conv2\.0\.0"
-                                         r"\.weight has shape \(230, 128, 1, 3, 3\), "
+                                         r"\.weight has shape \(288, 128, 1, 3, 3\), "
                                          r"the model's R\(2\+1\)D-18 takes "
-                                         r"\(288, 128"):
+                                         r"\(230, 128"):
         convert.convert(dry["root"] / "results" / "config.json", None, path,
                         alias="bad", verify_hash=False, device="cpu")
     config = Config.load(dry["root"] / "results" / "config.json")
@@ -177,14 +181,18 @@ def test_convert_needs_the_card_unless_asked_for_the_cpu(dry, monkeypatch):
 
 def test_standin_shapes_are_the_port_layout():
     """The stand-in VGGish has the released file's shapes; the R(2+1)D-18
-    one the names torchvision saves, at the shapes of the port's tree."""
+    one the names and shapes torchvision saves, which are the port's tree:
+    31,505,325 parameters with the 400-class head, torchvision's count."""
     shapes = dict(convert.vggish_shapes())
     assert shapes["embeddings.0.weight"] == (4096, 12288)
     assert len(shapes) == 18
     rs = dict(convert.r2plus1d_18_shapes())
     assert rs["stem.0.weight"] == (45, 3, 1, 7, 7)
     assert rs["layer2.0.conv1.0.0.weight"] == (230, 64, 1, 3, 3)
+    for layer, cin, mid in ((2, 128, 230), (3, 256, 460), (4, 512, 921)):
+        assert rs[f"layer{layer}.0.conv2.0.0.weight"] == (mid, cin, 1, 3, 3)
+        assert rs[f"layer{layer}.0.conv2.0.3.weight"] == (cin, mid, 3, 1, 1)
     n = sum(int(np.prod(s)) for k, s in rs.items()
             if not k.endswith(("running_mean", "running_var",
                                "num_batches_tracked")))
-    assert n == 33370839
+    assert n == 31505325

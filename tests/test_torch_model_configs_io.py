@@ -87,7 +87,9 @@ def test_checkpoints_cross_load_byte_for_byte(tiny_config, tmp_path, config):
 def resnet_setup(tiny_config, tiny_corpus, tmp_path_factory):
     """The tiny corpus with video_encoder resnet, a config file, and a
     text_video / non-attention / resnet checkpoint written by the JAX
-    package."""
+    package: the port's tree, whose R(2+1)D-18 has torchvision's widths
+    (conv2 of layer2.0 230 wide where the JAX package's init draws 288),
+    which the JAX package's apply runs from its leaves' shapes."""
     out = tmp_path_factory.mktemp("configs")
     cfg = tiny_config.replace(output_path=out / "results",
                               video_encoder="resnet")
@@ -98,6 +100,8 @@ def resnet_setup(tiny_config, tiny_corpus, tmp_path_factory):
     mc = JQ.ModelConfig.from_config(cfg, n_vocab=len(ds.vocab),
                                     mode="text_video", dec="non_attn")
     params, state = TQ.init_params(TQ.ModelConfig(**mc._asdict()), 4)
+    assert params["video_enc"]["stages"][1][0]["conv2"]["spatial"][
+        "w"].shape == (1, 3, 3, 128, 230)
     ts = {"params": params, "model_state": state,
           "opt_state": JT.make_optimizer(cfg).init(params),
           "step": np.zeros((), np.int32)}

@@ -163,7 +163,7 @@ TRAIN_SPANS = ("data.batch", "train.h2d", "train.forward", "train.backward",
                "train.optimizer", "train.loss_read")
 
 
-def _tiny_pipeline():
+def _tiny_pipeline(video_encoder="conv_lstm"):
     """A tiny f32 QGPipeline on the CPU and a request of three examples
     with frames and audio."""
     from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
@@ -174,7 +174,7 @@ def _tiny_pipeline():
                      flatten_dim=10, context_max_length=12, av_max_length=4,
                      target_steps=5, frame_size=32, mel_frames=16,
                      mel_bins=16, sample_rate=1600, stft_window=64,
-                     stft_hop=32)
+                     stft_hop=32, video_encoder=video_encoder)
     params, state = init_params(mc, seed=0)
     words = ["<pad>", "<start>", "<end>"] + [f"w{i}" for i in range(3, 30)]
     vocab = {w: i for i, w in enumerate(words)}
@@ -211,6 +211,67 @@ def test_generate_records_the_serving_spans_in_order(strategy, tmp_path):
     got = _spans(prof, SERVE_SPANS)
     assert [n for n, _, _ in got] == list(SERVE_SPANS)
     assert all(end <= nxt for (_, _, end), (_, nxt, _) in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("video_encoder", ["conv_lstm", "resnet"])
+def test_video_spans_open_only_on_the_resnet_branch(video_encoder, tmp_path):
+    """``video.prepare`` then ``video.trunk``, once each inside
+    ``model.encode``, where R(2+1)D encodes the frames; neither with the
+    conv pyramid."""
+    pipe, req = _tiny_pipeline(video_encoder)
+    pipe.generate(*req)
+    with profiling.trace(tmp_path) as prof:
+        pipe.generate(*req)
+    got = _spans(prof, ("model.encode", "video.prepare", "video.trunk"))
+    if video_encoder == "conv_lstm":
+        assert [n for n, _, _ in got] == ["model.encode"]
+        return
+    assert [n for n, _, _ in got] == ["model.encode", "video.prepare",
+                                      "video.trunk"]
+    (_, s0, e0), (_, s1, e1), (_, s2, e2) = got
+    assert s0 <= s1 <= e1 <= s2 <= e2 <= e0
+
+
+def test_a_trunk_counts_its_convs_and_weight_casts(monkeypatch):
+    """``video_resnet.convs``: one trunk at torchvision's widths runs 37
+    convs, 14 of them with channels not a multiple of 8 (3 -> 45, 45 -> 64
+    and the four around each of 230, 460, 921 midplanes);
+    ``weight_casts``: each conv casts its weight once, writing it in the
+    compute dtype."""
+    from mmqg_tpu_torch.models import video_resnet as R
+
+    params, state = R.init_numpy(np.random.RandomState(0))
+    model = R.build(params, state, torch.tensor)
+    convs = {"trunks": 0, "aligned": 0, "unaligned": 0}
+    casts = {"calls": 0, "bytes": 0}
+    monkeypatch.setattr(R, "convs", convs)
+    monkeypatch.setattr(R, "weight_casts", casts)
+    model.temporal(torch.zeros((1, 3, 16, 16, 3)), dtype=torch.bfloat16)
+    weights = [m.w for m in model.modules() if isinstance(m, R.Conv3d)]
+    assert convs == {"trunks": 1, "aligned": 23, "unaligned": 14}
+    assert casts == {"calls": 37,
+                     "bytes": 2 * sum(w.numel() for w in weights)}
+
+
+R2PLUS1D_READERS = ("r2plus1d_mfu.serve", "r2plus1d_roofline.serve",
+                    "r2plus1d_unaligned_convs.serve",
+                    "r2plus1d_cast_mb.serve", "video_trunk_enqueue_ms.serve")
+
+
+@pytest.mark.parametrize("metric", R2PLUS1D_READERS)
+def test_r2plus1d_readers_read_nothing_without_their_sources(metric,
+                                                             monkeypatch):
+    """The R(2+1)D cell's readers return None on a trace with no spans,
+    kernels or calls and for a program without the counters (the parent
+    commit's), and do not raise."""
+    from mmqg_tpu_torch.models import video_resnet as R
+    from portbench import run, trace
+
+    reader = run.load_module(run.HERE / "metrics" / f"{metric}.py")
+    monkeypatch.delattr(R, "convs")
+    monkeypatch.delattr(R, "weight_casts")
+    assert reader.read({"trace": trace.Trace(1.0), "cfg": {},
+                        "calls": []}) is None
 
 
 @pytest.mark.parametrize("accum", [1, 2])

@@ -196,9 +196,11 @@ def _bn_states(tree):
 # ------------------------------------------------ torchvision's layout
 
 def _torch_r2plus1d_18(num_classes=400):
-    """A live torch r2plus1d_18 with torchvision's module nesting and
-    state_dict keys (torchvision's models/video/resnet.py, restated from
-    the published architecture: torchvision is not a dependency)."""
+    """A live torch r2plus1d_18 with torchvision's module nesting,
+    state_dict keys and widths (torchvision's models/video/resnet.py,
+    restated from the published architecture: torchvision is not a
+    dependency): a block's midplanes come from its input and output
+    channels, and both of its (2+1)D convs take them."""
     def midplanes(cin, cout):
         return (cin * cout * 3 * 3 * 3) // (cin * 3 * 3 + 3 * cout)
 
@@ -213,12 +215,12 @@ def _torch_r2plus1d_18(num_classes=400):
     class Block(nn.Module):
         def __init__(self, cin, cout, stride=1):
             super().__init__()
+            mid = midplanes(cin, cout)
             self.conv1 = nn.Sequential(
-                conv2plus1d(cin, cout, midplanes(cin, cout), stride),
+                conv2plus1d(cin, cout, mid, stride),
                 nn.BatchNorm3d(cout), nn.ReLU(True))
             self.conv2 = nn.Sequential(
-                conv2plus1d(cout, cout, midplanes(cout, cout)),
-                nn.BatchNorm3d(cout))
+                conv2plus1d(cout, cout, mid), nn.BatchNorm3d(cout))
             self.downsample = None
             if stride != 1 or cin != cout:
                 self.downsample = nn.Sequential(
@@ -362,3 +364,27 @@ def test_train_gradients_match_jax_in_float64(nets):
         for a, b in zip(got, exact):
             assert float(np.abs(a - b).max()) <= F32_GRAD_BAND * float(
                 np.abs(b).max())
+
+
+def test_a_jax_layout_tree_builds_and_gives_jax_outputs():
+    """``video_resnet.init``'s tree, whose conv2 in the first block of
+    stages 2-4 is midplanes(planes, planes) wide (288, 576, 1152) where the
+    port draws torchvision's 230, 460, 921, builds from its leaves' shapes
+    and gives the JAX package's ``apply_temporal`` (f32, eval)."""
+    params, state = JR.init(jax.random.PRNGKey(3))
+    params = jax.tree.map(np.array, params)
+    state = random_stats(jax.tree.map(np.array, state),
+                         np.random.RandomState(5))
+    port, _ = R.init_numpy(np.random.RandomState(5))
+    for si, (jax_mid, port_mid) in enumerate(((288, 230), (576, 460),
+                                              (1152, 921)), 1):
+        assert params["stages"][si][0]["conv2"]["spatial"]["w"].shape[-1] \
+            == jax_mid
+        assert port["stages"][si][0]["conv2"]["spatial"]["w"].shape[-1] \
+            == port_mid
+    clips = np.random.RandomState(6).rand(2, 9, 32, 32, 3).astype(np.float32)
+    ref, _ = JR.apply_temporal(_jax(params), _jax(state), jnp.asarray(clips),
+                               dtype=jnp.float32)
+    got, _ = build(params, state).temporal(torch.from_numpy(clips),
+                                           dtype=torch.float32)
+    _close(got.numpy(), ref, EVAL_TOL, "apply_temporal")

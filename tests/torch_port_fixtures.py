@@ -124,6 +124,29 @@ def jax_video_stats_f64():
 
 
 @contextlib.contextmanager
+def jax_audio_f64():
+    """The JAX package's VGGish tower (``audio_encoder.embed_examples``)
+    computing in float64 inside ``jax.enable_x64``, whatever dtype it is
+    called with, and returning float32 embeddings."""
+    import jax
+    import jax.numpy as jnp
+    import pytest
+
+    from mmqg_tpu.models import audio_encoder as JA
+
+    orig = JA.embed_examples
+
+    def embed_examples(params, mel, *, dtype=None):
+        p64 = jax.tree.map(lambda a: a.astype(jnp.float64), params)
+        return orig(p64, mel.astype(jnp.float64),
+                    dtype=jnp.float64).astype(jnp.float32)
+
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JA, "embed_examples", embed_examples)
+        yield
+
+
+@contextlib.contextmanager
 def port_resnet_f64():
     """The port's R(2+1)D tower run in float64 (``VideoResNet.temporal``
     with float64 clips and compute dtype), returning float32 features: the
