@@ -20,20 +20,38 @@ leaf's shape, so its trees still build and run here.
         512 to the decoder's video width.
 
 Activations are NDHWC (channels last), which is an NCDHW tensor in
-``torch.channels_last_3d`` memory, so each conv is one cuDNN ``conv3d`` on
-a view and batchnorm reduces over the last axis. The weights keep the JAX
-layout (kt, kh, kw, In, Out), because they are the checkpoint's and the
-optimizer's leaves; each conv casts its weight to the compute dtype and
-lays it out as cuDNN reads it in that one copy. (A float64 model run with
-``dtype=torch.float64`` stays in float64 throughout: the tests' exact
-reference.)
+``torch.channels_last_3d`` memory, and batchnorm reduces over the last
+axis. The weights keep the JAX layout and the published shapes (kt, kh,
+kw, In, Out), because they are the checkpoint's and the optimizer's
+leaves; ``param_tree``, ``bn_tree`` and ``build`` see nothing else. Each
+conv casts its leaf to the compute dtype and lays it out as cuDNN reads it
+on every call, and runs each (1, k, k) or (k, 1, 1) factor as a 2-D conv
+on a view (``_conv_ndhwc``), which cuDNN puts on its bf16 tensor-core
+kernels where it runs some of the same 3-D convs on its f32 kernel. The
+trunk's ``train`` picks one of two widths for all of its convs:
+
+* inference (``train=False``): In and Out zero-padded to multiples of 8,
+  which cuDNN's bf16 tensor-core kernels need. The stem's 45 and the 230,
+  460, 921 midplanes (288, 576, 1152 in the JAX package's tree are aligned
+  already) flow padded through their conv pair: the batchnorm between
+  gives the padded channels scale and shift 0, so they stay exactly 0,
+  and the next conv's weights on them are 0; the RGB clips are padded to
+  8 channels at the stem.
+* training (``train=True``): the published widths, so the batchnorms'
+  statistics and the gradients are those of the leaves as they are.
+
+Both give the same mathematics: every output channel of the published
+widths sums the same products, plus exact zeros. (A float64 model run
+with ``dtype=torch.float64`` stays in float64 throughout: the tests'
+exact reference.)
 
 Counters, for the benchmark's readers: ``convs`` counts the trunks run
-and their convs by channel alignment (``aligned``: input and output
-channels both multiples of 8, which cuDNN's bf16 tensor-core kernels
-need; ``unaligned``: the rest, 14 of the published 37), and
-``weight_casts`` the per-call weight casts of ``Conv3d.forward`` and the
-bytes they write.
+and their conv launches at the widths launched (``aligned``: input and
+output channels both multiples of 8; ``unaligned``: the rest, 14 of 37 in
+a training trunk at the published widths, none in an inference trunk;
+``padded``: launches whose channels were padded, 14 an inference trunk at
+the published widths); ``weight_casts`` counts the weight casts, 37 a
+trunk, and the bytes they write, at the launched widths.
 
 Casts follow the JAX package: a conv takes its input and weight in the
 compute dtype and its result is cast to float32; batchnorm runs in float32;
@@ -63,12 +81,16 @@ STAGES = (64, 128, 256, 512)
 # stages 2-4 each stride time by 2 (the stem does not)
 TEMPORAL_DOWNSAMPLE = 8
 
-convs = {"trunks": 0, "aligned": 0, "unaligned": 0}
+convs = {"trunks": 0, "aligned": 0, "unaligned": 0, "padded": 0}
 weight_casts = {"calls": 0, "bytes": 0}
 
 
 def midplanes(cin: int, cout: int, kt: int = 3, ks: int = 3) -> int:
     return (kt * ks * ks * cin * cout) // (ks * ks * cin + kt * cout)
+
+
+def _up8(c: int) -> int:
+    return -(-c // 8) * 8
 
 
 def temporal_out_len(n_frames):
@@ -86,30 +108,80 @@ class Conv3d(nn.Module):
         self.w = L._frozen(w)
 
     def forward(self, x: Tensor, stride: Tuple[int, int, int],
-                dtype: torch.dtype) -> Tensor:
+                dtype: torch.dtype, *, pad: bool = False) -> Tensor:
         """(B, T, H, W, In) -> (B, T', H', W', Out) in ``dtype``: the
         batchnorm that always follows takes it to float32, as JAX's
-        ``astype(float32)`` of the conv output does."""
+        ``astype(float32)`` of the conv output does.
+
+        ``pad`` (the inference path) zero-pads the weight's In and Out to
+        multiples of 8: the output has Out rounded up, the padded channels
+        exactly 0, and an input with fewer channels than the padded In
+        (the RGB clips) is padded with zeros."""
         kt, kh, kw, cin, cout = self.w.shape
-        w = self.w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        convs["aligned" if cin % 8 == 0 and cout % 8 == 0
-              else "unaligned"] += 1
+        w = self.w.permute(4, 3, 0, 1, 2)            # (Out, In, kt, kh, kw)
+        if pad and (cin % 8 or cout % 8):
+            # channels_last_3d: (Out, kt, kh, kw, In) in memory
+            wp = w.new_zeros((_up8(cout), kt, kh, kw, _up8(cin)),
+                             dtype=dtype).permute(0, 4, 1, 2, 3)
+            wp[:cout, :cin] = w
+            w = wp
+            convs["padded"] += 1
+        else:
+            w = w.to(dtype, memory_format=torch.channels_last_3d)
         weight_casts["calls"] += 1
         weight_casts["bytes"] += w.numel() * w.element_size()
-        y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), w, stride=stride,
-                     padding=(kt // 2, kh // 2, kw // 2))
-        return y.permute(0, 2, 3, 4, 1)
+        convs["aligned" if w.shape[0] % 8 == 0 and w.shape[1] % 8 == 0
+              else "unaligned"] += 1
+        x = x.to(dtype)
+        if x.shape[-1] < w.shape[1]:
+            x = F.pad(x, (0, w.shape[1] - x.shape[-1]))
+        return _conv_ndhwc(x, w, stride, (kt // 2, kh // 2, kw // 2))
+
+
+def _conv_ndhwc(x: Tensor, w: Tensor, stride: Tuple[int, int, int],
+                padding: Tuple[int, int, int]) -> Tensor:
+    """The conv of channels-last ``x`` (B, T, H, W, In) with a
+    ``channels_last_3d`` weight (Out, In, kt, kh, kw): (B, T', H', W',
+    Out). A (1, kh, kw) kernel not strided in time runs as a 2-D conv with
+    the frames as its batch, a (kt, 1, 1) kernel not strided in space as a
+    2-D conv over (T, H * W); both on views, with no copy. cuDNN runs
+    those on its bf16 tensor-core kernels, where it runs some of the same
+    convs as 3-D convs on its f32 kernel (a (3, 1, 1) kernel to 64 channels
+    at 56 x 56). Other kernels (the strided 1 x 1 x 1 shortcut) stay 3-D
+    convs."""
+    B, T, H, W, C = x.shape
+    O, _, kt, kh, kw = w.shape
+    if kt == 1 and stride[0] == 1:
+        y = F.conv2d(x.reshape(B * T, H, W, C).permute(0, 3, 1, 2),
+                     w[:, :, 0], stride=stride[1:], padding=padding[1:])
+        return y.permute(0, 2, 3, 1).reshape(B, T, *y.shape[2:], O)
+    if kh == kw == 1 and stride[1:] == (1, 1):
+        y = F.conv2d(x.reshape(B, T, H * W, C).permute(0, 3, 1, 2),
+                     w[..., 0], stride=(stride[0], 1),
+                     padding=(padding[0], 0))
+        return y.permute(0, 2, 3, 1).reshape(B, y.shape[2], H, W, O)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
+                 padding=padding)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def _bn(bn: L.BatchNorm, x: Tensor, train: bool, relu: bool = False
         ) -> Tuple[Tensor, Dict]:
     """(batchnorm of the conv output ``x`` in float32, then a ReLU when
     ``relu``; the new running state): in eval the module's own buffers, as
-    JAX returns its state unchanged."""
+    JAX returns its state unchanged. An eval ``x`` padded past the
+    batchnorm's channels (to a multiple of 8) gets scale and shift 0
+    there, so those channels stay 0."""
     if train:
         return bn.train_forward_all(x, relu=relu)
-    return bn.eval_all(x, relu=relu), bn.state()
+    pad = x.shape[-1] - bn.scale.shape[0]
+    if pad == 0:
+        return bn.eval_all(x, relu=relu), bn.state()
+    assert 0 < pad < 8, (x.shape, bn.scale.shape)
+    a = bn.scale * torch.rsqrt(bn.var + 1e-5)
+    b = bn.bias - bn.mean * a
+    return (L.affine(L._f32_up(x), F.pad(a, (0, pad)), F.pad(b, (0, pad)),
+                     relu), bn.state())
 
 
 class Conv2Plus1D(nn.Module):
@@ -123,9 +195,11 @@ class Conv2Plus1D(nn.Module):
     def forward(self, x: Tensor, stride: Tuple[int, int, int], *,
                 train: bool, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
         st, sh, sw = stride
-        y, s = _bn(self.bn_mid, self.spatial(x, (1, sh, sw), dtype), train,
+        y, s = _bn(self.bn_mid, self.spatial(x, (1, sh, sw), dtype,
+                                             pad=not train), train,
                    relu=True)
-        return self.temporal(y, (st, 1, 1), dtype), {"bn_mid": s}
+        return (self.temporal(y, (st, 1, 1), dtype, pad=not train),
+                {"bn_mid": s})
 
 
 class Block(nn.Module):
@@ -147,8 +221,9 @@ class Block(nn.Module):
         state = {"conv1": s1, "conv2": s2, "bn1": b1, "bn2": b2}
         sc = x
         if self.down is not None:
-            sc, state["down_bn"] = _bn(self.down_bn,
-                                       self.down(x, stride, dtype), train)
+            sc, state["down_bn"] = _bn(
+                self.down_bn, self.down(x, stride, dtype, pad=not train),
+                train)
         return torch.relu(y + sc), state
 
 
@@ -167,10 +242,12 @@ class VideoResNet(nn.Module):
         """(B, T, H, W, 3) float clips -> ((B, ceil(T / 8), H', W', 512)
         float32, new state)."""
         convs["trunks"] += 1
-        x, sbn = _bn(self.stem_bn, self.stem_s(clips, (1, 2, 2), dtype),
+        x, sbn = _bn(self.stem_bn, self.stem_s(clips, (1, 2, 2), dtype,
+                                               pad=not train),
                      train, relu=True)
-        x, sbn2 = _bn(self.stem_bn2, self.stem_t(x, (1, 1, 1), dtype), train,
-                      relu=True)
+        x, sbn2 = _bn(self.stem_bn2, self.stem_t(x, (1, 1, 1), dtype,
+                                                 pad=not train),
+                      train, relu=True)
         state = {"stem_bn": sbn, "stem_bn2": sbn2, "stages": []}
         for si, blocks in enumerate(self.stages):
             stage_state = []

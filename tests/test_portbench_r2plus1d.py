@@ -135,7 +135,8 @@ def test_a_tiny_run_is_correct_and_reads_the_program(tmp_path, monkeypatch):
     # The counters are the process's; a benchmark run is a process of its
     # own, so start them at zero as it does, whatever trunks ran before.
     monkeypatch.setattr(video_resnet, "convs",
-                        {"trunks": 0, "aligned": 0, "unaligned": 0})
+                        {"trunks": 0, "aligned": 0, "unaligned": 0,
+                         "padded": 0})
     monkeypatch.setattr(video_resnet, "weight_casts",
                         {"calls": 0, "bytes": 0})
     root = tiny_copy(tmp_path / "portbench")
@@ -152,7 +153,7 @@ def test_a_tiny_run_is_correct_and_reads_the_program(tmp_path, monkeypatch):
     assert out["correct"] is True, out["checks"]
     assert set(out["checks"]) == {"logit_gap_vs_fp8", "unservable"}
     got = {k: v["value"] for k, v in out["metrics"].items()}
-    assert got["r2plus1d_unaligned_convs.serve"] == 14
+    assert got["r2plus1d_unaligned_convs.serve"] == 0
     assert 0 < got["r2plus1d_mfu.serve"] and 0 < got[
         "video_trunk_enqueue_ms.serve"]
     assert "r2plus1d_roofline.serve" not in got    # no device kernels here

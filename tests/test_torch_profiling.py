@@ -233,24 +233,26 @@ def test_video_spans_open_only_on_the_resnet_branch(video_encoder, tmp_path):
 
 
 def test_a_trunk_counts_its_convs_and_weight_casts(monkeypatch):
-    """``video_resnet.convs``: one trunk at torchvision's widths runs 37
-    convs, 14 of them with channels not a multiple of 8 (3 -> 45, 45 -> 64
-    and the four around each of 230, 460, 921 midplanes);
-    ``weight_casts``: each conv casts its weight once, writing it in the
-    compute dtype."""
+    """``video_resnet.convs``: one inference trunk at torchvision's widths
+    launches 37 convs, all with channels a multiple of 8, 14 of them
+    padded to it (3 -> 45, 45 -> 64 and the four around each of 230, 460,
+    921 midplanes); ``weight_casts``: each conv casts its weight once, in
+    the compute dtype at the padded widths."""
     from mmqg_tpu_torch.models import video_resnet as R
 
     params, state = R.init_numpy(np.random.RandomState(0))
     model = R.build(params, state, torch.tensor)
-    convs = {"trunks": 0, "aligned": 0, "unaligned": 0}
+    convs = {"trunks": 0, "aligned": 0, "unaligned": 0, "padded": 0}
     casts = {"calls": 0, "bytes": 0}
     monkeypatch.setattr(R, "convs", convs)
     monkeypatch.setattr(R, "weight_casts", casts)
     model.temporal(torch.zeros((1, 3, 16, 16, 3)), dtype=torch.bfloat16)
-    weights = [m.w for m in model.modules() if isinstance(m, R.Conv3d)]
-    assert convs == {"trunks": 1, "aligned": 23, "unaligned": 14}
+    shapes = [m.w.shape for m in model.modules() if isinstance(m, R.Conv3d)]
+    assert convs == {"trunks": 1, "aligned": 37, "unaligned": 0,
+                     "padded": 14}
     assert casts == {"calls": 37,
-                     "bytes": 2 * sum(w.numel() for w in weights)}
+                     "bytes": 2 * sum(kt * kh * kw * R._up8(i) * R._up8(o)
+                                      for kt, kh, kw, i, o in shapes)}
 
 
 R2PLUS1D_READERS = ("r2plus1d_mfu.serve", "r2plus1d_roofline.serve",

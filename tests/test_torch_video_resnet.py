@@ -19,6 +19,8 @@ and clips of 17 frames at 32 x 32 px through both, f32 on the CPU:
   (port 8.7e-7, JAX 2.2e-6).
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -388,3 +390,177 @@ def test_a_jax_layout_tree_builds_and_gives_jax_outputs():
     got, _ = build(params, state).temporal(torch.from_numpy(clips),
                                            dtype=torch.float32)
     _close(got.numpy(), ref, EVAL_TOL, "apply_temporal")
+
+
+# ------------------------------------------------ the inference path
+
+# the padded inference trunk against the same trunk at the published
+# widths, relative to the output's max: float64 sums the same products
+# with exact zeros added (1.9e-16 measured); bf16 rounds each conv's f32
+# sums, and another order of the sums flips some of those roundings
+# (9.3e-4 measured, where a bf16 trunk sits 3e-3 from an f32 one): two
+# bf16 steps
+PAD_F64_TOL, PAD_BF16_TOL = 1e-12, 2.0 ** -7
+
+
+@pytest.fixture(scope="module")
+def inference_trees():
+    """torchvision's widths and the JAX package's tree (conv2 of the first
+    block of stages 2-4 at 288, 576, 1152), random statistics; clips."""
+    rng = np.random.RandomState(11)
+    params, state = R.init_numpy(rng)
+    jp, js = JR.init(jax.random.PRNGKey(3))
+    trees = {"published": (params, random_stats(state, rng)),
+             "jax288": (jax.tree.map(np.array, jp),
+                        random_stats(jax.tree.map(np.array, js), rng))}
+    return trees, rng.rand(2, 9, 32, 32, 3)
+
+
+def _counters(monkeypatch):
+    convs = {"trunks": 0, "aligned": 0, "unaligned": 0, "padded": 0}
+    casts = {"calls": 0, "bytes": 0}
+    monkeypatch.setattr(R, "convs", convs)
+    monkeypatch.setattr(R, "weight_casts", casts)
+    return convs, casts
+
+
+def _model(trees, name, dtype):
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    return build(*trees[name], npdt)
+
+
+def _clips(clips, dtype):
+    return torch.from_numpy(clips).to(
+        torch.float64 if dtype == torch.float64 else torch.float32)
+
+
+def _unpadded(m, x, dtype, monkeypatch):
+    """The eval trunk with every conv at its published widths: padding to
+    a multiple of 1 pads nothing."""
+    with monkeypatch.context() as mp:
+        mp.setattr(R, "_up8", lambda c: c)
+        y, _ = m.temporal(x, dtype=dtype)
+    return y
+
+
+@pytest.mark.parametrize("tree", ["published", "jax288"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, PAD_F64_TOL),
+                                       (torch.bfloat16, PAD_BF16_TOL)],
+                         ids=["float64", "bfloat16"])
+def test_the_padded_inference_trunk_equals_the_per_call_path(
+        inference_trees, tree, dtype, tol, monkeypatch):
+    trees, clips = inference_trees
+    m = _model(trees, tree, dtype)
+    x = _clips(clips, dtype)
+    got, _ = m.temporal(x, dtype=dtype)
+    want = _unpadded(m, x, dtype, monkeypatch)
+    assert got.shape == want.shape == (2, 2, 512)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("tree,padded", [("published", 14), ("jax288", 8)])
+def test_inference_trunks_count_padded_launches_and_casts(
+        inference_trees, tree, padded, monkeypatch):
+    """Every launch of an inference trunk is aligned; ``padded`` counts the
+    convs whose channels were padded (the stem's two and the four around
+    each 230, 460, 921 midplane; the JAX tree's conv2 is aligned, its conv1
+    not). Each trunk casts its 37 weights, at the launched widths."""
+    trees, clips = inference_trees
+    convs, casts = _counters(monkeypatch)
+    m = _model(trees, tree, torch.bfloat16)
+    x = _clips(clips, torch.bfloat16)
+    m.temporal(x, dtype=torch.bfloat16)
+    assert convs == {"trunks": 1, "aligned": 37, "unaligned": 0,
+                     "padded": padded}
+    up8 = lambda c: -(-c // 8) * 8                          # noqa: E731
+    want = sum(2 * kt * kh * kw * up8(cin) * up8(cout)
+               for kt, kh, kw, cin, cout in (
+                   c.w.shape for c in m.modules()
+                   if isinstance(c, R.Conv3d)))
+    assert casts == {"calls": 37, "bytes": want}
+    m.temporal(x, dtype=torch.bfloat16)
+    assert casts == {"calls": 74, "bytes": 2 * want}
+    assert convs == {"trunks": 2, "aligned": 74, "unaligned": 0,
+                     "padded": 2 * padded}
+
+
+def _change(m, what):
+    conv = m.stages[1][0].conv1.spatial           # 64 -> 230, padded
+    bn = m.stages[1][0].conv1.bn_mid              # its midplanes' batchnorm
+    if what == "weight_in_place":
+        with torch.no_grad():
+            conv.w.mul_(2.0)
+            m.stem_s.w.mul_(0.5)
+    elif what == "weight_replaced":               # a new storage, same leaf
+        conv.w.data = conv.w.data * 2.0
+    elif what == "bn_load_state":
+        bn.load_state({"mean": bn.mean + 0.3, "var": bn.var * 2.0,
+                       "count": bn.count + 1})
+
+
+@pytest.mark.parametrize("what", ["weight_in_place", "weight_replaced",
+                                  "bn_load_state"])
+def test_the_next_inference_call_sees_a_changed_leaf(inference_trees, what,
+                                                     monkeypatch):
+    trees, clips = inference_trees
+    m = _model(trees, "published", torch.float64)
+    x = _clips(clips, torch.float64)
+    before, _ = m.temporal(x, dtype=torch.float64)
+    _change(m, what)
+    got, _ = m.temporal(x, dtype=torch.float64)
+    want = _unpadded(m, x, torch.float64, monkeypatch)
+    scale = float(want.abs().max())
+    assert float((got - before).abs().max()) > 1e-3 * scale
+    assert float((got - want).abs().max()) <= PAD_F64_TOL * scale
+
+
+def test_an_inference_trunk_holds_no_freed_leaf(inference_trees):
+    """FSDP frees a leaf by giving it an empty tensor and gathers it again
+    into a new one (``parallel/zero.py``). After an inference trunk, no
+    storage of a freed conv weight is still referenced, and the trunk
+    after the gather gives the first one's output."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    trees, clips = inference_trees
+    m = _model(trees, "published", torch.float32)
+    x = _clips(clips, torch.float32)
+    first, _ = m.temporal(x, dtype=torch.bfloat16)
+    leaves = [c.w for c in m.modules() if isinstance(c, R.Conv3d)]
+    whole = [p.detach().clone() for p in leaves]
+    refs = [StorageWeakRef(p.untyped_storage()) for p in leaves]
+    for p in leaves:
+        p.data = torch.empty(0, dtype=p.dtype)
+    gc.collect()
+    assert all(r.expired() for r in refs)
+    for p, w in zip(leaves, whole):
+        p.data = w.clone()
+    again, _ = m.temporal(x, dtype=torch.bfloat16)
+    assert torch.equal(first, again)
+
+
+def test_a_train_trunk_after_an_inference_one_keeps_the_published_widths(
+        inference_trees, monkeypatch):
+    """A train-mode trunk after an inference one gives the gradients and
+    the new state of a model that never ran inference, bit for bit, at the
+    published widths (14 unaligned launches, none padded)."""
+    trees, clips = inference_trees
+    used = _model(trees, "published", torch.float64)
+    fresh = _model(trees, "published", torch.float64)
+    x = _clips(clips, torch.float64)
+    used.temporal(x, dtype=torch.float64)
+    ct = torch.from_numpy(np.random.RandomState(2).randn(2, 2, 512))
+    convs, _ = _counters(monkeypatch)
+    out = []
+    for m in (used, fresh):
+        m.requires_grad_(True)
+        y, state = m.temporal(x, train=True, dtype=torch.float64)
+        (y * ct).sum().backward()
+        out.append(([p.grad for p in tree_leaves(m.param_tree())],
+                    tree_leaves(state)))
+    assert convs == {"trunks": 2, "aligned": 46, "unaligned": 28,
+                     "padded": 0}
+    (g0, s0), (g1, s1) = out
+    assert len(g0) == len(g1) and all(torch.equal(a, b)
+                                      for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
