@@ -9,23 +9,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. K1       lstm_seq kernel vs its plain PyTorch version, on the card, at
             the encoders' shapes and one edge case (B=5, T=1); the route must
             be the persistent sweep; at text layer 0 bf16 the persistent and
-            per-step routes timed in turns beside cuDNN, the input GEMM
-            alone, the sweep's barrier floor and the routes at B=128
-4. K2       trimodal_attention's tiled route vs its plain version, on the
+            per-step routes timed in turns beside cuDNN, the per-step
+            route's launch floor and the routes at B=128
+4. K2       trimodal_attention's tiled kernel vs its plain version, on the
             card, at B = 1, 32, 33 and 128 and lengths random, 1, L and
-            L - 3; at B=32 and 128 the tiled and the first (per_row) route
-            timed in turns
+            L - 3, one launch a call; timed at B=32 and 128
 5. main     QGPipeline at the flagship's full width (random weights from a
             seed) answers 32 greedy requests; K1 must launch 4x per encode,
-            each by the persistent route, K2 21x per decode by the tiled
-            route, and the int8 conv 5x (s8 route) and quantize_s8 5x per
-            encode
+            each by the persistent route, K2 21x per decode, and the int8
+            conv 5x and quantize_s8 5x per encode
 6. card/cpu the same pipeline in f32 on 4 requests, on the card and on the
             CPU: identical greedy tokens, logits within a stated tolerance
 7. strategies  the same pipeline (bf16, int8 tower) serves 32 requests by
-            beam search (K=4): K2 must launch 21x by the tiled route on 128
-            rows, K1 4x persistent, the int8 conv 5x; beam and greedy
-            generate() timed in turns and one beam decode profiled (K2's
+            beam search (K=4): K2 must launch 21x on 128 rows, K1 4x
+            persistent, the int8 conv 5x; beam and greedy generate() timed
+            in turns and one beam decode profiled (K2's
             device time at 128 rows); sampling, top-k and top-p: each row
             served alone with its row seed equals the row in the batch (f32
             must; bf16 is printed); a sampled generate() against greedy in
@@ -56,13 +54,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             conv2..conv6 stack timed beside it, and in bf16 at two ragged
             sizes (1 and 37 examples); then the K3 path,
             AudioEncoder.forward(use_kernel=True), must launch it 5x
-12. int8    vggish_conv_int8 (the s8 tensor-core route and the forced
-            __dp4a one, timed in turns) vs its plain version on the same
-            batch's quantized inputs, each of the five layers, dynamic and
-            static scales: max |d| must be 0; the fused next-layer quantize
-            and quantize_s8 vs quantize_activations: identical int8 and
-            scales; the whole int8 stack (quantizes included) new vs old in
-            turns, and at 1 and 37 examples; torch._int_mm as a yardstick
+12. int8    vggish_conv_int8 (the s8 tensor-core kernel, timed) vs its
+            plain version on the same batch's quantized inputs, each of the
+            five layers, dynamic and static scales: max |d| must be 0; the
+            fused next-layer quantize and quantize_s8 vs
+            quantize_activations: identical int8 and scales; the whole int8
+            stack (quantizes included) vs the plain chain, timed, and at 1
+            and 37 examples; torch._int_mm as a yardstick
 13. calibrate  QGPipeline.calibrate_audio_int8 on the card, then one greedy
             generate() with the static scales (quantize_s8 once: the later
             quantizes are the convs' epilogues)
@@ -72,8 +70,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             of 4-30 s. One generate_from_video, generate_from_videos per
             video (4 prep workers) and coalesced (up to 32 rows a batch), and
             a sequential baseline (every prep, then one generate a video):
-            each dispatched batch must launch K1 4x (persistent), K2 21x
-            (tiled), the int8 conv 5x (wgmma) and quantize_s8 5x; every video
+            each dispatched batch must launch K1 4x (persistent), K2 21x,
+            the int8 conv 5x and quantize_s8 5x; every video
             must take the frame route the host supports (native where libav
             loads, else cv2) and its audio from the staged wav; a corrupt and
             a missing mp4 error alone; in f32 on 4 videos every path gives
@@ -477,37 +475,6 @@ K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 
 
-def _input_gemm(args, dtype, card: str) -> float:
-    """Time the forward's input projection alone (x.Wx + b, the kernel K1
-    and K4's forward both launch first) on K1's inputs ``args``, beside
-    cuBLAS's matmul of the same operands; returns its ms."""
-    xs, wx, _, b = args[:4]
-    B, T, In = xs.shape
-    N = wx.shape[1]
-    x = xs.to(dtype).reshape(B * T, In).contiguous()
-    w = wx.to(dtype).contiguous()
-    out = torch.empty((B * T, N), device=xs.device)
-    lib = _build.library()
-
-    def run():
-        _build.check(lib.mmqg_lstm_input_proj(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B * T,
-            N, In, int(dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream), "mmqg_lstm_input_proj")
-    run()
-    err = max_abs(out, L.mm(x, w, dtype) + b)
-    ms = cuda_ms(run, iters=20)
-    lib_ms = cuda_ms(lambda: torch.matmul(x, w), iters=20)
-    bnd = bound(2 * B * T * In * N, nbytes(x, w, b, out), dtype)
-    log(f"K1/K4 input GEMM alone (x.Wx + b, M={B * T} N={N} K={In} "
-        f"{str(dtype)[6:]}): {ms:.4f} ms, max|d| from plain {err:.2e}; "
-        f"cuBLAS matmul ({str(dtype)[6:]} out) {lib_ms:.4f} ms; bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
-    if not err <= 1e-4 * float(out.abs().max()):
-        raise AssertionError(f"input GEMM max|d| {err}")
-    return ms
-
-
 def phase_k1(card: str) -> dict:
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
@@ -537,27 +504,13 @@ def phase_k1(card: str) -> dict:
                     f" [{card}]")
                 summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            **bnd, "library_ms": lib["fwd"],
-                           "per_step_ms": min(turns["per_step"]),
-                           "input_gemm_ms": _input_gemm(args, dtype, card)}
-    # the latency floor of each design: 283 back-to-back launches of a
-    # one-element kernel (one launch a step), and one cooperative launch of
-    # the sweep's grid doing 283 grid barriers and nothing else
+                           "per_step_ms": min(turns["per_step"])}
+    # the per-step route's latency floor: 283 back-to-back launches of a
+    # one-element kernel (one launch a step)
     one = torch.zeros(1, device=dev)
     floor = cuda_ms(lambda: [one.add_(1.0) for _ in range(283)], iters=5)
     log(f"K1 latency floor: 283 dependent one-element launches take "
         f"{floor:.3f} ms ({floor / 283 * 1e3:.2f} us each) [{card}]")
-    lib = _build.library()
-    sync = torch.empty(1, dtype=torch.int32, device=dev)
-
-    def barrier_floor():
-        _build.check(lib.mmqg_lstm_barrier_floor(
-            sync.data_ptr(), 32, 512, 283,
-            torch.cuda.current_stream().cuda_stream),
-            "mmqg_lstm_barrier_floor")
-    barriers = cuda_ms(barrier_floor, iters=5)
-    log(f"K1/K4 barrier floor: one cooperative launch of the sweep's 64 x 2 "
-        f"grid (B=32, H=512) doing 283 grid barriers takes {barriers:.3f} ms "
-        f"({barriers / 283 * 1e3:.2f} us a barrier) [{card}]")
     # the batch a later benchmark serves
     both = (torch.bfloat16, torch.float32)
 
@@ -582,13 +535,12 @@ def phase_k1(card: str) -> dict:
         failures.append(f"B=128: max|d| {err}")
     if failures:
         raise AssertionError(f"K1 kernel and plain disagree: {failures}")
-    return dict(summary, barrier_floor_ms=barriers)
+    return summary
 
 
 # (B, lengths) of the K2 phase: the decode's batch and a later benchmark's
-# (timed, both routes in turns), a lone row, a ragged batch tile (33 rows),
-# and lengths 1, L and L - 3 (not a multiple of the tiled route's
-# 16-position chunk)
+# (timed), a lone row, a ragged batch tile (33 rows), and lengths 1, L and
+# L - 3 (not a multiple of the kernel's 16-position chunk)
 K2_CASES = ((32, "random"), (128, "random"), (1, "random"), (33, "random"),
             (32, "one"), (33, "full"), (33, "ragged"))
 
@@ -608,9 +560,9 @@ def _k2_case(rng, B, dtype, dev, lengths="random"):
                               ).astype(np.int32)).to(dev)
             for L in (Lt, La, La)]
     args = (w_t, b, q, *mems, *lens)
-    before = dict(trimodal_attention.routes)
+    before = trimodal_attention.launches
     got = trimodal_attention(*args)
-    route = routes_taken(trimodal_attention.routes, before)
+    launched = trimodal_attention.launches - before
     ref = trimodal_attention_plain(*args)
     torch.cuda.synchronize()
     err = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
@@ -625,53 +577,44 @@ def _k2_case(rng, B, dtype, dev, lengths="random"):
     bnd = bound(ops, nbytes(w_t, b, q, *lens, *got[:3], got[3]["text"],
                             got[3]["video"], got[3]["audio"]) + mem_bytes,
                 dtype)
-    return err, route, args, bnd
+    return err, launched, args, bnd
 
 
 def phase_k2(card: str) -> dict:
-    """The tiled route against the plain version at every K2_CASES entry,
-    f32 and bf16; at B=32 and 128 with random lengths the tiled and the
-    first (per_row) route timed in turns beside the plain version: each
-    kernel's device time (torch.profiler), and the wrapper's calls back to
-    back (CUDA events; the host sets that pace)."""
+    """The kernel against the plain version at every K2_CASES entry, f32
+    and bf16, one launch a call; at B=32 and 128 with random lengths the
+    kernel timed beside the plain version: its device time
+    (torch.profiler), and the wrapper's calls back to back (CUDA events;
+    the host sets that pace)."""
     rng = np.random.RandomState(SEED + 1)
     dev = torch.device("cuda")
     summary, failures = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         for B, lengths in K2_CASES:
-            err, route, args, bnd = _k2_case(rng, B, dtype, dev, lengths)
+            err, launched, args, bnd = _k2_case(rng, B, dtype, dev, lengths)
             line = (f"K2 trimodal_attention B={B} Dq=812 L=283/101/101 "
-                    f"lengths {lengths} {str(dtype)[6:]}: route {route}; "
-                    f"max|d|={err:.3e} (tol {K2_TOL[dtype]:.0e})")
+                    f"lengths {lengths} {str(dtype)[6:]}: launches "
+                    f"{launched}; max|d|={err:.3e} (tol "
+                    f"{K2_TOL[dtype]:.0e})")
             if lengths == "random" and B in (32, 128):
-                kernel = {"tiled": ("attn_tile_kernel",),
-                          "per_row": ("trimodal_attention_kernel",)}
-                dev_turns, call_turns = {}, {}
-                for r in ("tiled", "per_row", "per_row", "tiled"):
-                    def call(r=r):
-                        return trimodal_attention(*args, force_route=r)
-                    dev_turns.setdefault(r, []).append(
-                        device_ms(call, kernel[r]))
-                    call_turns.setdefault(r, []).append(
-                        cuda_ms(call, iters=50))
+                def call():
+                    return trimodal_attention(*args)
+                ms = device_ms(call, ("attn_tile_kernel",))
+                call_ms = cuda_ms(call, iters=50)
                 plain_ms = cuda_ms(lambda: trimodal_attention_plain(*args),
                                    iters=20)
-                line += (f"; device time in turns: {fmt_turns(dev_turns)}; "
-                         f"calls back to back (host-paced): "
-                         f"{fmt_turns(call_turns)}; plain {plain_ms:.4f} ms;"
-                         f" bound {bnd['bound_ms']:.4f} ms "
+                line += (f"; device time {ms:.4f} ms; calls back to back "
+                         f"(host-paced) {call_ms:.4f} ms; plain "
+                         f"{plain_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
                          f"({bnd['bound_by']}; no library call computes it)")
                 if dtype == torch.bfloat16 and B == 32:
-                    summary = {"max_abs_err": err,
-                               "ms": min(dev_turns["tiled"]),
+                    summary = {"max_abs_err": err, "ms": ms,
                                "plain_ms": plain_ms, **bnd,
-                               "library_ms": None,
-                               "per_row_ms": min(dev_turns["per_row"]),
-                               "call_ms": min(call_turns["tiled"])}
+                               "library_ms": None, "call_ms": call_ms}
             log(f"{line} [{card}]")
-            if not err <= K2_TOL[dtype] or route != "tiled":
+            if not err <= K2_TOL[dtype] or launched != 1:
                 failures.append(f"B={B} {lengths} {dtype}: max|d| {err} "
-                                f"route {route}")
+                                f"launches {launched}")
     if failures:
         raise AssertionError(f"K2 kernel and plain disagree: {failures}")
     return summary
@@ -810,10 +753,6 @@ def phase_main(card: str, model) -> dict:
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     check_routes("main: K1", lstm_seq.routes, want["lstm_seq"])
-    check_only_route("main: K2", trimodal_attention.routes, "tiled",
-                     want["trimodal_attention"])
-    check_only_route("main: int8 conv", V.conv3x3_relu_int8.routes, "wgmma",
-                     want["vggish_conv_int8"])
     if len(questions) != N_REQUESTS or not all(
             isinstance(q, str) for q in questions):
         raise AssertionError("generate() did not return one string a request")
@@ -1069,10 +1008,6 @@ def phase_strategies(card: str, model) -> dict:
     if launches != want or set(k2_rows) != {rows}:
         raise AssertionError(f"beam launches {launches}, K2 rows {k2_rows}")
     check_routes("strategies: beam K1", lstm_seq.routes, want["lstm_seq"])
-    check_only_route("strategies: beam K2", trimodal_attention.routes,
-                     "tiled", want["trimodal_attention"])
-    check_only_route("strategies: beam int8 conv", V.conv3x3_relu_int8.routes,
-                     "wgmma", want["vggish_conv_int8"])
     if len(questions) != N_REQUESTS or not all(
             isinstance(q, str) for q in questions):
         raise AssertionError("beam generate() did not return one string a "
@@ -1184,12 +1119,6 @@ def phase_strategies(card: str, model) -> dict:
             raise AssertionError(f"evaluate({strategy}) launches {ev}")
         check_routes(f"strategies: evaluate({strategy}) K1", lstm_seq.routes,
                      two["lstm_seq"])
-        check_only_route(f"strategies: evaluate({strategy}) K2",
-                         trimodal_attention.routes, "tiled",
-                         two["trimodal_attention"])
-        check_only_route(f"strategies: evaluate({strategy}) int8 conv",
-                         V.conv3x3_relu_int8.routes, "wgmma",
-                         two["vggish_conv_int8"])
 
     log(media_probe())
     return {"beam_launches": launches["trimodal_attention"],
@@ -1504,20 +1433,10 @@ def _reset_launches() -> None:
     lstm_seq.launches = trimodal_attention.launches = 0
     lstm_layer_train.fwd_launches = lstm_layer_train.bwd_launches = 0
     for counts in (lstm_seq.routes, lstm_layer_train.fwd_routes,
-                   lstm_layer_train.bwd_routes, trimodal_attention.routes,
-                   V.conv3x3_relu_int8.routes):
+                   lstm_layer_train.bwd_routes):
         counts.update(dict.fromkeys(counts, 0))
     V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
     V.quantize_s8.launches = 0
-
-
-def check_only_route(what: str, routes: dict, route: str,
-                     launches: int) -> None:
-    """Print a route counter; all ``launches`` must have taken ``route``."""
-    want = {r: launches if r == route else 0 for r in routes}
-    log(f"{what} routes {routes} (want {want})")
-    if routes != want:
-        raise AssertionError(f"{what} routes {routes}")
 
 
 def check_routes(what: str, routes: dict, launches: int) -> None:
@@ -2002,19 +1921,6 @@ def phase_k3(card: str, serving) -> dict:
     return dict(summary, launches=launches["vggish_conv"])
 
 
-def _int8_stack_dp4a(convs, x1, scales, dtype):
-    """conv2..conv6 as the int8 tower ran them before the s8 kernel: each
-    layer's quantize as plain tensor operations on the card, then the
-    __dp4a kernel (force_route="dp4a")."""
-    x = x1
-    for i, (c, pool) in enumerate(zip(convs[1:], V.POOLS)):
-        wq, sw = V.quantize_weights(c.w)
-        xq, sx = V.quantize_activations(x, scales[i])
-        x = V.conv3x3_relu_int8(xq, wq, sx, sw, c.b, pool=pool, dtype=dtype,
-                                force_route="dp4a")
-    return x
-
-
 def _int8_stack_plain(convs, x1, scales, dtype):
     """conv2..conv6 through the plain versions (quantize_activations,
     conv3x3_relu_int8_plain)."""
@@ -2066,14 +1972,14 @@ def _int_mm_yardstick(xq, wq, layer_ms: float, card: str) -> None:
 def phase_int8(card: str, serving) -> dict:
     """The int8 tower's conv2..conv6 on the serving batch (bf16 out, as
     served), with dynamic and with calibrated static scales. Per layer, on
-    the plain chain's int8 input: the s8 tensor-core kernel and the forced
-    __dp4a route against the plain version (max |d| must be 0; a nonzero
-    one prints its witness), timed in turns; the fused next-layer quantize
-    against quantize_activations (identical int8 and scales) and the input
-    quantize kernel's time. Then the whole stack, conv1-pool output to
-    conv6 output with its quantizes, new (V.int8_convs) against old (plain
-    quantize + __dp4a) in turns, at the serving batch and ragged batches of
-    1 and 37 examples; and torch._int_mm as a yardstick."""
+    the plain chain's int8 input: the s8 tensor-core kernel against the
+    plain version (max |d| must be 0; a nonzero one prints its witness),
+    timed; the fused next-layer quantize against quantize_activations
+    (identical int8 and scales) and the input quantize kernel's time. Then
+    the whole stack, conv1-pool output to conv6 output with its quantizes
+    (V.int8_convs), against the plain chain at the serving batch (timed)
+    and ragged batches of 1 and 37 examples; and torch._int_mm as a
+    yardstick."""
     pipe, _, mel, _ = serving
     convs = pipe.model.audio_enc.convs
     flat = mel.reshape((-1,) + mel.shape[2:])
@@ -2081,8 +1987,7 @@ def phase_int8(card: str, serving) -> dict:
     scales = tuple(pipe.model.audio_enc.calibrate_int8_scales(flat))
     x1 = V.conv1_pool(convs, flat, dtype)
     modes = (("dynamic", (None,) * len(V.POOLS)), ("static", scales))
-    tot = dict.fromkeys(("ms", "dp4a_ms", "plain_ms", "q_ms", "q_plain_ms"),
-                        0.0)
+    tot = dict.fromkeys(("ms", "plain_ms", "q_ms", "q_plain_ms"), 0.0)
     ops = nb = q_ops = q_nb = 0
     worst, failures = 0.0, []
     for mode, sc in modes:
@@ -2116,17 +2021,14 @@ def phase_int8(card: str, serving) -> dict:
                 qtxt = f"input quantize in conv{i + 1}'s epilogue"
             args = (xq, wq, sx, sw, c.b)
             got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
-            old = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype,
-                                      force_route="dp4a")
             ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
             torch.cuda.synchronize()
-            err, err_old = max_abs(got, ref), max_abs(old, ref)
-            worst = max(worst, err, err_old)
+            err = max_abs(got, ref)
+            worst = max(worst, err)
             line = (f"int8 conv{i + 2} {tuple(xq.shape)} -> {c.w.shape[-1]} "
-                    f"pool={pool} {mode}: wgmma max|d|={err:.3e} dp4a "
-                    f"max|d|={err_old:.3e} (want 0) of max "
-                    f"{float(ref.float().abs().max()):.3e}"
-                    + _witness("wgmma", got, ref) + _witness("dp4a", old, ref))
+                    f"pool={pool} {mode}: wgmma max|d|={err:.3e} (want 0) of "
+                    f"max {float(ref.float().abs().max()):.3e}"
+                    + _witness("wgmma", got, ref))
             if i + 1 < len(V.POOLS):
                 def fused():
                     return V.conv3x3_relu_int8_quant(*args, pool=pool,
@@ -2140,27 +2042,21 @@ def phase_int8(card: str, serving) -> dict:
                          f" {cuda_ms(fused, iters=3):.3f} ms")
                 if not same:
                     failures.append(f"conv{i + 2} {mode} fused quantize")
-            turns = in_turns({
-                "wgmma": lambda: V.conv3x3_relu_int8(*args, pool=pool,
-                                                     dtype=dtype),
-                "dp4a": lambda: V.conv3x3_relu_int8(*args, pool=pool,
-                                                    dtype=dtype,
-                                                    force_route="dp4a")},
-                iters=3)
-            line += f"; {fmt_turns(turns)} in turns; {qtxt}"
+            ms = cuda_ms(lambda: V.conv3x3_relu_int8(*args, pool=pool,
+                                                     dtype=dtype), iters=3)
+            line += f"; wgmma {ms:.3f} ms; {qtxt}"
             if mode == "dynamic":
                 p = cuda_ms(lambda: V.conv3x3_relu_int8_plain(
                     *args, pool=pool, dtype=dtype), iters=1, warmup=1)
                 line += f"; plain {p:.2f} ms"
-                tot["ms"] += min(turns["wgmma"])
-                tot["dp4a_ms"] += min(turns["dp4a"])
+                tot["ms"] += ms
                 tot["plain_ms"] += p
                 N, H, W, Cin = xq.shape
                 ops += 2 * N * H * W * 9 * Cin * c.w.shape[-1]
                 nb += nbytes(*args, got)
             log(f"{line} [{card}]")
             if mode == "dynamic" and i == 2:
-                _int_mm_yardstick(xq, wq, min(turns["wgmma"]), card)
+                _int_mm_yardstick(xq, wq, ms, card)
             x = ref
     bnd = bound(ops, nb, torch.int8)
     q_bnd = bound(q_ops, q_nb, torch.float32)
@@ -2173,15 +2069,15 @@ def phase_int8(card: str, serving) -> dict:
     log(f"int8 weight quantize per encode (quantize_weights + the K-major "
         f"pack, conv2..conv6, {n_w} f32 weights): {w_ms:.3f} ms [{card}]")
     log(f"int8 conv2..conv6 (dynamic, each layer alone): wgmma "
-        f"{tot['ms']:.2f} ms dp4a {tot['dp4a_ms']:.2f} ms plain "
+        f"{tot['ms']:.2f} ms plain "
         f"{tot['plain_ms']:.2f} ms bound {bnd['bound_ms']:.3f} ms "
         f"({bnd['bound_by']}); no PyTorch call runs an int8 conv on CUDA; "
         f"input quantizes (5 quantize_s8 launches) {tot['q_ms']:.3f} ms, "
         f"plain {tot['q_plain_ms']:.3f} ms, bound {q_bnd['bound_ms']:.3f} "
         f"ms; static scales {scales} [{card}]")
 
-    # the whole stack as encode runs it, old and new
-    stack = {}
+    # the whole stack as encode runs it
+    stack_ms = None
     for mode, sc in modes:
         act = None if mode == "dynamic" else sc
         for n in (x1.shape[0], 1, 37):
@@ -2203,24 +2099,19 @@ def phase_int8(card: str, serving) -> dict:
             if err != 0 or launched != want:
                 failures.append(f"stack N={n} {mode}")
             if n == x1.shape[0]:
-                turns = in_turns({
-                    "new": lambda: V.int8_convs(convs, xs, dtype=dtype,
-                                                act_scales=act),
-                    "old": lambda: _int8_stack_dp4a(convs, xs, sc, dtype)},
-                    iters=3)
-                stack[mode] = turns
-                line += (f"; new (quantize_s8 + s8 conv, quantize fused) vs "
-                         f"old (plain quantize + dp4a) in turns: "
-                         f"{fmt_turns(turns)}")
+                ms = cuda_ms(lambda: V.int8_convs(convs, xs, dtype=dtype,
+                                                  act_scales=act), iters=3)
+                if mode == "dynamic":
+                    stack_ms = ms
+                line += (f"; quantize_s8 + s8 conv, quantize fused: "
+                         f"{ms:.3f} ms")
             log(f"{line} [{card}]")
     if worst != 0.0 or failures:
         raise AssertionError(f"the int8 kernels and their plain versions "
                              f"differ: max|d| {worst}, {failures}")
     return {"conv": {"max_abs_err": worst, "ms": tot["ms"],
                      "plain_ms": tot["plain_ms"], **bnd, "library_ms": None,
-                     "dp4a_ms": tot["dp4a_ms"], "weight_quantize_ms": w_ms,
-                     "stack_ms": min(stack["dynamic"]["new"]),
-                     "stack_dp4a_ms": min(stack["dynamic"]["old"])},
+                     "weight_quantize_ms": w_ms, "stack_ms": stack_ms},
             "quant": {"max_abs_err": 0.0, "ms": tot["q_ms"],
                       "plain_ms": tot["q_plain_ms"], **q_bnd,
                       "library_ms": None}}
@@ -2455,8 +2346,8 @@ def check_media_routes(what: str, preps: int, audio: str) -> None:
 
 
 def check_dispatch_launches(what: str, mc, dispatches: int) -> dict:
-    """Each dispatched batch launched K1 4x (persistent), K2 21x (tiled),
-    the int8 conv 5x (wgmma) and quantize_s8 5x."""
+    """Each dispatched batch launched K1 4x (persistent), K2 21x, the int8
+    conv 5x and quantize_s8 5x."""
     launches = _launches()
     want = dict(ZERO_LAUNCHES,
                 lstm_seq=(mc.text_layers + 1) * dispatches,
@@ -2468,10 +2359,6 @@ def check_dispatch_launches(what: str, mc, dispatches: int) -> dict:
     if launches != want or dispatches == 0:
         raise AssertionError(f"{what}: kernel launches {launches} != {want}")
     check_routes(f"{what}: K1", lstm_seq.routes, want["lstm_seq"])
-    check_only_route(f"{what}: K2", trimodal_attention.routes, "tiled",
-                     want["trimodal_attention"])
-    check_only_route(f"{what}: int8 conv", V.conv3x3_relu_int8.routes,
-                     "wgmma", want["vggish_conv_int8"])
     return launches
 
 
@@ -2879,10 +2766,6 @@ def check_config_launches(what: str, mc, launches: dict) -> None:
         raise AssertionError(f"{what}: launches {launches} != {want}")
     if want["lstm_seq"]:
         check_routes(f"{what}: K1", lstm_seq.routes, want["lstm_seq"])
-    check_only_route(f"{what}: K2", trimodal_attention.routes, "tiled",
-                     want["trimodal_attention"])
-    check_only_route(f"{what}: int8 conv", V.conv3x3_relu_int8.routes,
-                     "wgmma", want["vggish_conv_int8"])
 
 
 def _peak_mb(fn):
@@ -3303,10 +3186,6 @@ def check_dp_launches(single: dict, sharded: dict, replicas: int) -> None:
                                  f"{sharded[k]} over {replicas} replicas "
                                  f"(want {n} and {replicas * n})")
     check_routes("dp: sharded K1", dict(lstm_seq.routes), replicas * 4)
-    check_only_route("dp: sharded K2", dict(trimodal_attention.routes),
-                     "tiled", replicas * 21)
-    check_only_route("dp: sharded int8 conv",
-                     dict(V.conv3x3_relu_int8.routes), "wgmma", replicas * 5)
 
 
 def check_dp_k4(out: dict, ref: dict) -> None:
@@ -4103,11 +3982,6 @@ def train_on_prepared(card: str, config) -> dict:
                              f"{val_want} or loss {val['loss']}")
     check_routes("offline: validate() K1", lstm_seq.routes,
                  val_want["lstm_seq"])
-    check_only_route("offline: validate() K2", trimodal_attention.routes,
-                     "tiled", val_want["trimodal_attention"])
-    check_only_route("offline: validate() int8 conv",
-                     V.conv3x3_relu_int8.routes, "wgmma",
-                     val_want["vggish_conv_int8"])
     return {"steps": steps, "epoch_ms": epoch_s * 1e3,
             "samples_s": len(train_ds.records) / epoch_s, "loss": loss,
             "launches": launches, "validate_launches": val_launches,
@@ -4188,11 +4062,6 @@ def reference_round_trip(card: str, model, root, device: str = "cuda",
                 raise AssertionError(f"offline {name}: launches {launches}")
             check_routes(f"offline: {name} K1", lstm_seq.routes,
                          want["lstm_seq"])
-            check_only_route(f"offline: {name} K2", trimodal_attention.routes,
-                             "tiled", want["trimodal_attention"])
-            check_only_route(f"offline: {name} int8 conv",
-                             V.conv3x3_relu_int8.routes, "wgmma",
-                             want["vggish_conv_int8"])
         _, toks, logits = _encode_decode(pipe, req)
         out[name] = (questions, toks.cpu(), logits.cpu(), launches)
         del pipe

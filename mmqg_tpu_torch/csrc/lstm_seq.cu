@@ -69,14 +69,6 @@ int run(const void* x, const void* wx, const void* wh, const void* bias,
   return lstm_forward(x, wx, bias, p, In, rows, stream);
 }
 
-// T grid barriers and nothing else, on the sweep's grid: the persistent
-// route's latency floor.
-__global__ void __launch_bounds__(kThreads)
-barrier_kernel(unsigned* sync, int T) {
-  const unsigned blocks = gridDim.x * gridDim.y;
-  for (int t = 1; t <= T; ++t) grid_barrier(sync, blocks * (unsigned)t);
-}
-
 }  // namespace
 }  // namespace mmqg
 
@@ -110,34 +102,4 @@ extern "C" int mmqg_lstm_seq(const void* x, const void* wx, const void* wh,
 extern "C" int mmqg_lstm_seq_rows(int B, int H, int bf16) {
   return bf16 ? mmqg::fwd_sweep_rows<__nv_bfloat16, mmqg::MaskedOut>(B, H)
               : mmqg::fwd_sweep_rows<float, mmqg::MaskedOut>(B, H);
-}
-
-// The input projection alone, as the forward runs it: xproj (M,N) f32 =
-// x (M,In) . wx (In,N) + bias (N), operands in the compute type.
-extern "C" int mmqg_lstm_input_proj(const void* x, const void* wx,
-                                    const void* bias, void* xproj, int M,
-                                    int N, int In, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  float* out = static_cast<float*>(xproj);
-  return static_cast<int>(
-      bf16 ? mmqg::input_proj<__nv_bfloat16>(x, wx, b, out, M, N, In, s)
-           : mmqg::input_proj<float>(x, wx, b, out, M, N, In, s));
-}
-
-// One cooperative launch of the sweep's grid at (B, H) doing T grid
-// barriers and nothing else; sync is one unsigned int of scratch.
-extern "C" int mmqg_lstm_barrier_floor(void* sync, int B, int H, int T,
-                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* syncp = static_cast<unsigned*>(sync);
-  cudaError_t err = cudaMemsetAsync(syncp, 0, sizeof(unsigned), s);
-  void* args[] = {&syncp, &T};
-  if (err == cudaSuccess)
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(mmqg::barrier_kernel),
-        dim3(H / mmqg::kJ, (B + mmqg::kRows - 1) / mmqg::kRows),
-        dim3(mmqg::kThreads), args, 0, s);
-  if (err != cudaSuccess) cudaGetLastError();
-  return static_cast<int>(err);
 }

@@ -15,150 +15,38 @@
 // What bounds it on the H100: bytes. At B=32 one step reads W (812 x 485,
 // 0.8 MB in bf16) once and each memory row below its length once (up to
 // 13.4 MB in bf16 at full lengths) at about 2 flops a byte: 2-4 us at 3.35
-// TB/s. Both routes mask the true lengths in the kernel and pad nothing (the
-// TPU kernel padded L to lane multiples, 384/128/128).
+// TB/s. The kernel masks the true lengths and pads nothing (the TPU kernel
+// padded L to lane multiples, 384/128/128).
 //
-// attn_tile_kernel, the route taken ("tiled"). A block owns a tile of 16
-// batch rows x a chunk of 16 positions of one segment x a slice of 128
-// memory columns, so at B=32 the flagship's shapes give 2 x 107 = 214
-// blocks (text 18 chunks x 4 slices, video 7 x 4, audio 7 x 1). It stages
-// the tile's q and the chunk's 16 rows of W in shared memory with cp.async
-// (W is read once a batch tile, not once a row), forms the 16 x 16 x Dq
-// score product (bf16: mma.sync m16n8k16 through lstm.cuh's mma_rows16,
-// the warps splitting Dq; f32: SIMT in the first design's summation order,
-// 32 interleaved sums and a tree, since TF32 is outside the f32
-// tolerance), and keeps a flash-decoding partial per row: the chunk's max
-// m, sum s of exp(score - m) and context sum_l exp(score_l - m) mem[l, :]
-// over its columns, from 16-byte reads of the memory rows, all of a
-// thread's issued before its sums. Chunks wholly past a row's length are
-// not read; a chunk past every row's length does nothing but arrive. The
-// last block to arrive for its (tile, segment, slice) -- a __threadfence
-// and an atomic counter, which it resets for the next call -- merges, with
-// 8 chunks' partials in flight a thread: M = max m_c, S = sum s_c exp(m_c -
-// M), ctx = sum_c exp(m_c - M) ctx_c / S. Block (chunk c, slice c % nsl)
-// writes chunk c's raw scores, and the merger of that slice turns them
-// into the normalised maps, exp(score - M) / S below the length and 0
-// past it, so the slices' mergers share the maps. Device time at B=32 on
-// an NVIDIA H100 80GB HBM3 at 700 W: 0.019 ms in bf16, 0.036 ms in f32
-// (torch.profiler; PERF.md has the rest).
+// attn_tile_kernel. A block owns a tile of 16 batch rows x a chunk of 16
+// positions of one segment x a slice of 128 memory columns, so at B=32 the
+// flagship's shapes give 2 x 107 = 214 blocks (text 18 chunks x 4 slices,
+// video 7 x 4, audio 7 x 1). It stages the tile's q and the chunk's 16 rows
+// of W in shared memory with cp.async (W is read once a batch tile, not once
+// a row), forms the 16 x 16 x Dq score product (bf16: mma.sync m16n8k16
+// through lstm.cuh's mma_rows16, the warps splitting Dq; f32: SIMT, 32
+// interleaved sums and a tree, since TF32 is outside the f32 tolerance), and
+// keeps a flash-decoding partial per row: the chunk's max m, sum s of
+// exp(score - m) and context sum_l exp(score_l - m) mem[l, :] over its
+// columns, from 16-byte reads of the memory rows, all of a thread's issued
+// before its sums. Chunks wholly past a row's length are not read; a chunk
+// past every row's length does nothing but arrive. The last block to arrive
+// for its (tile, segment, slice) -- a __threadfence and an atomic counter,
+// which it resets for the next call -- merges, with 8 chunks' partials in
+// flight a thread: M = max m_c, S = sum s_c exp(m_c - M), ctx = sum_c exp(m_c
+// - M) ctx_c / S. Block (chunk c, slice c % nsl) writes chunk c's raw scores,
+// and the merger of that slice turns them into the normalised maps, exp(score
+// - M) / S below the length and 0 past it, so the slices' mergers share the
+// maps. Device time at B=32 on an NVIDIA H100 80GB HBM3 at 700 W: 0.019 ms in
+// bf16, 0.036 ms in f32 (torch.profiler; PERF.md has the rest).
 //
-// trimodal_attention_kernel, the first design (reached only through
-// force_route="per_row", a yardstick): one block per (batch row, segment),
-// SIMT. Scores: one warp per position on the pre-transposed W, so W is read
-// once a row; softmax by block reductions; context: threads stride over the
-// hidden dimension while each walks the row's positions serially (up to 283
-// dependent 2-byte loads), which makes it latency-bound: 0.079 ms of device
-// time at B=32 bf16 on the same card.
+// The first design, one SIMT block per (batch row, segment) walking the
+// row's positions serially, was latency-bound at 0.079 ms of device time
+// at B=32 bf16 on the same card; this tiling replaced it.
 #include "lstm.cuh"
 
 namespace mmqg {
 namespace {
-
-constexpr float kNegInf = -1e30f;  // finite -inf stand-in, as the JAX ops
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-trimodal_attention_kernel(const T* __restrict__ q,        // (B, Dq)
-                          const T* __restrict__ w_t,      // (Lt+2La, Dq)
-                          const float* __restrict__ bias, // (Lt+2La,)
-                          const T* __restrict__ enc_text,  // (B, Lt, Ht)
-                          const T* __restrict__ enc_video, // (B, La, Hv)
-                          const T* __restrict__ enc_audio, // (B, La, Ha)
-                          const int* __restrict__ text_len,
-                          const int* __restrict__ video_len,
-                          const int* __restrict__ audio_len,
-                          float* __restrict__ ctx_t,   // (B, Ht)
-                          float* __restrict__ ctx_a,   // (B, Ha)
-                          float* __restrict__ ctx_v,   // (B, Hv)
-                          float* __restrict__ maps,    // (B, Lt+2La)
-                          int Dq, int Lt, int La, int Ht, int Hv, int Ha) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
-  const int b = blockIdx.x, m = blockIdx.y;
-  const int Lsum = Lt + 2 * La;
-  int L, off, Hm, len;
-  const T* mem;
-  float* ctx;
-  if (m == 0) {
-    L = Lt; off = 0; Hm = Ht; len = text_len[b];
-    mem = enc_text + (size_t)b * Lt * Ht; ctx = ctx_t + (size_t)b * Ht;
-  } else if (m == 1) {
-    L = La; off = Lt; Hm = Hv; len = video_len[b];
-    mem = enc_video + (size_t)b * La * Hv; ctx = ctx_v + (size_t)b * Hv;
-  } else {
-    L = La; off = Lt + La; Hm = Ha; len = audio_len[b];
-    mem = enc_audio + (size_t)b * La * Ha; ctx = ctx_a + (size_t)b * Ha;
-  }
-  float* qs = smem;          // Dq
-  float* alpha = smem + Dq;  // L
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-
-  for (int i = tid; i < Dq; i += kThreads) qs[i] = to_f32(q[(size_t)b * Dq + i]);
-  __syncthreads();
-
-  for (int l = warp; l < L; l += nwarps) {
-    const T* wr = w_t + (size_t)(off + l) * Dq;
-    float s = 0.0f;
-    for (int d = lane; d < Dq; d += 32) s = fmaf(qs[d], to_f32(wr[d]), s);
-    s = warp_sum(s);
-    if (lane == 0) alpha[l] = l < len ? s + bias[off + l] : kNegInf;
-  }
-  __syncthreads();
-
-  float mx = -INFINITY;
-  for (int l = tid; l < L; l += kThreads) mx = fmaxf(mx, alpha[l]);
-  mx = block_max(mx, red);
-  float sum = 0.0f;
-  for (int l = tid; l < L; l += kThreads) {
-    const float e = l < len ? expf(alpha[l] - mx) : 0.0f;
-    alpha[l] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);  // its barriers also publish alpha[]
-  for (int l = tid; l < L; l += kThreads) {
-    const float a = alpha[l] / sum;
-    alpha[l] = a;
-    maps[(size_t)b * Lsum + off + l] = a;
-  }
-  __syncthreads();
-
-  const int n = len < L ? len : L;
-  for (int h = tid; h < Hm; h += kThreads) {
-    float acc = 0.0f;
-    for (int l = 0; l < n; ++l)
-      acc = fmaf(alpha[l], to_f32(mem[(size_t)l * Hm + h]), acc);
-    ctx[h] = acc;
-  }
-}
-
-template <typename T>
-int run(const void* q, const void* w_t, const void* bias, const void* et,
-        const void* ev, const void* ea, const void* tl, const void* vl,
-        const void* al, void* ctx_t, void* ctx_a, void* ctx_v, void* maps,
-        int B, int Dq, int Lt, int La, int Ht, int Hv, int Ha,
-        cudaStream_t stream) {
-  const int Lmax = Lt > La ? Lt : La;
-  const size_t smem = sizeof(float) * (size_t)(Dq + Lmax);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        trimodal_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  trimodal_attention_kernel<T><<<dim3(B, 3), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(w_t),
-      static_cast<const float*>(bias), static_cast<const T*>(et),
-      static_cast<const T*>(ev), static_cast<const T*>(ea),
-      static_cast<const int*>(tl), static_cast<const int*>(vl),
-      static_cast<const int*>(al), static_cast<float*>(ctx_t),
-      static_cast<float*>(ctx_a), static_cast<float*>(ctx_v),
-      static_cast<float*>(maps), Dq, Lt, La, Ht, Hv, Ha);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// ------------------------------------------------------ the tiled route
 
 constexpr int kAC = 16;       // positions a chunk
 constexpr int kASlice = 128;  // memory columns a block
@@ -259,10 +147,10 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(AttnArgs<T> a) {
     // stage the tile's q rows and the chunk's W rows, zero past B, L and Dq
     constexpr bool kBf16 = kIsBf16<T>;
     constexpr int kE = 4;  // elements a copy: 8 bytes of bf16, 16 of f32
-    const int per_row = a.Kp / kE;
-    for (int j = tid; j < 2 * kRows * per_row; j += kThreads) {
-      const int which = j / (kRows * per_row), rem = j % (kRows * per_row);
-      const int rr = rem / per_row, k = (rem % per_row) * kE;
+    const int copies = a.Kp / kE;  // a row's copies
+    for (int j = tid; j < 2 * kRows * copies; j += kThreads) {
+      const int which = j / (kRows * copies), rem = j % (kRows * copies);
+      const int rr = rem / copies, k = (rem % copies) * kE;
       const T* src;
       bool ok;
       T* dst;
@@ -293,8 +181,8 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(AttnArgs<T> a) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) score += part[(w * kRows + r) * kAPld + l];
     } else {
-      // the first design's order (a warp's lanes over k = j mod 32, then a
-      // tree over the lanes) as 32 independent sums in registers
+      // a warp's order (lanes over k = j mod 32, then a tree over the
+      // lanes) as 32 independent sums in registers
       const float* qr = reinterpret_cast<const float*>(qs) + r * a.ld;
       const float* wr = reinterpret_cast<const float*>(ws) + l * a.ld;
       float acc[32];
@@ -443,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) attn_tile_kernel(AttnArgs<T> a) {
   if (tid == 0) *counter = 0;  // every block of it has arrived
 }
 
-// The tiled route's geometry for the call, from the shapes: fills ``a``'s
+// The kernel's geometry for the call, from the shapes: fills ``a``'s
 // ints and returns the floats of part_ms and part_ctx and the counters
 // (tiles x 3 x msl) it needs.
 template <typename T>
@@ -527,28 +415,7 @@ int run_tiled(const void* q, const void* w_t, const void* bias,
 }  // namespace
 }  // namespace mmqg
 
-// q (B,Dq), w_t (Lt+2La,Dq) and the memories in the compute type (bf16 when
-// ``bf16`` is set, else f32); bias (Lt+2La) f32; lengths (B) int32 each.
-// Outputs f32: ctx_t (B,Ht), ctx_a (B,Ha), ctx_v (B,Hv), maps (B,Lt+2La).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int mmqg_trimodal_attention(
-    const void* q, const void* w_t, const void* bias, const void* enc_text,
-    const void* enc_video, const void* enc_audio, const void* text_len,
-    const void* video_len, const void* audio_len, void* ctx_t, void* ctx_a,
-    void* ctx_v, void* maps, int B, int Dq, int Lt, int La, int Ht, int Hv,
-    int Ha, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return mmqg::run<__nv_bfloat16>(q, w_t, bias, enc_text, enc_video,
-                                    enc_audio, text_len, video_len, audio_len,
-                                    ctx_t, ctx_a, ctx_v, maps, B, Dq, Lt, La,
-                                    Ht, Hv, Ha, s);
-  return mmqg::run<float>(q, w_t, bias, enc_text, enc_video, enc_audio,
-                          text_len, video_len, audio_len, ctx_t, ctx_a, ctx_v,
-                          maps, B, Dq, Lt, La, Ht, Hv, Ha, s);
-}
-
-// The tiled route's scratch for these shapes: sizes[0] floats of part_ms,
+// The kernel's scratch for these shapes: sizes[0] floats of part_ms,
 // sizes[1] floats of part_ctx, sizes[2] unsigned counters (zeroed once by
 // the caller; every launch leaves them zero).
 extern "C" int mmqg_trimodal_attention_workspace(int B, int Dq, int Lt,
@@ -560,9 +427,12 @@ extern "C" int mmqg_trimodal_attention_workspace(int B, int Dq, int Lt,
   return 0;
 }
 
-// The tiled route: arguments as mmqg_trimodal_attention, plus the scratch
-// of mmqg_trimodal_attention_workspace. Dq % 4 == 0 and H_s % 8 == 0 (the
-// 8- and 16-byte copies). Returns the cudaError_t of the launch.
+// q (B,Dq), w_t (Lt+2La,Dq) and the memories in the compute type (bf16 when
+// ``bf16`` is set, else f32); bias (Lt+2La) f32; lengths (B) int32 each.
+// Outputs f32: ctx_t (B,Ht), ctx_a (B,Ha), ctx_v (B,Hv), maps (B,Lt+2La);
+// then the scratch of mmqg_trimodal_attention_workspace. Dq % 4 == 0 and
+// H_s % 8 == 0 (the 8- and 16-byte copies). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int mmqg_trimodal_attention_tiled(
     const void* q, const void* w_t, const void* bias, const void* enc_text,
     const void* enc_video, const void* enc_audio, const void* text_len,

@@ -1,6 +1,6 @@
 // VGGish conv2..conv6: a 3x3 SAME, stride-1 conv over NHWC activations with
 // HWIO weights, bias and ReLU fused, and an optional 2x2 max pool fused into
-// the epilogue. Four kernels, and the int8 tower's activation quantize:
+// the epilogue. Three kernels, and the int8 tower's activation quantize:
 //
 // vggish_conv_tc_kernel (K3, bf16). Replaces: mmqg_tpu/ops/vggish_pallas.py::
 // vggish_features_pallas (its ``_kernel_a``, :137, and ``_kernel_b``, :150).
@@ -37,12 +37,6 @@
 // in one pass), or the next layer's int8 input itself (static scales).
 // Weights arrive packed K-major (Cout, 3, 3, Cin) int8.
 //
-// vggish_conv_int8_kernel (the int8 conv as first written; reached
-// only through an explicit force_route="dp4a", as a yardstick). The f32
-// kernel's SIMT design with int8 operands and __dp4a int32 sums, the same
-// epilogue; weights packed (3, 3, Cin/4, Cout) int32, four consecutive
-// input channels of one output channel a word.
-//
 // Pooling comes after the rounding to T, as in JAX; rounding is monotone, so
 // pooling first would give the same values.
 //
@@ -55,12 +49,12 @@
 // wgmma kernel takes 4.2 ms (~450 TFLOP/s, 2.2x its bound; cuDNN's bf16
 // conv2..conv6 6.1 ms). An mma.sync version of the same tiling took 6.5
 // ms; deeper rings that leave one block per SM were slower. The f32 SIMT
-// kernel 95.4 ms. The int8 conv: the __dp4a kernel 24.5 ms for the five
-// layers (~76 TOP/s against the int8 tensor cores' 1979), the s8 wgmma
-// kernel 2.84 ms (3.0x its bound; 740 TOP/s at conv4, where the library's
-// int8 GEMM on the same product, im2col'd, reaches 723). The quantize is
-// bound by bytes: it reads T once and writes int8 once (0.34 ms for an
-// encode's five, measured 0.57).
+// kernel 95.4 ms. The int8 conv: the first, SIMT int8 kernel took 24.5 ms
+// for the five layers (~76 TOP/s against the int8 tensor cores' 1979); the
+// s8 wgmma kernel takes 2.84 ms (3.0x its bound; 740 TOP/s at conv4, where
+// the library's int8 GEMM on the same product, im2col'd, reaches 723). The
+// quantize is bound by bytes: it reads T once and writes int8 once (0.34 ms
+// for an encode's five, measured 0.57).
 //
 // The Pallas kernels kept a tile of examples' activations in VMEM through
 // whole runs of the stack; Hopper's 227 KB of shared memory holds neither a
@@ -82,7 +76,6 @@ constexpr int kTileC = 128;            // output channels of a block
 constexpr int kPatchH = kTileH + 2, kPatchW = kTileW + 2;
 constexpr int kPatch = kPatchH * kPatchW;
 constexpr int kChunkF = 8;  // input channels per stage, float path
-constexpr int kWordsI = 8;  // input words (4 channels each) per stage, int8
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -95,9 +88,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch/JAX casts
 }
 
-// Shared by both kernels: ``v[p][j]`` holds relu(...) of position p of the
-// thread's 2 x 2 window (p = 2*dy + dx) and channel co0 + 4*cg + j, already
-// rounded to T (held in f32). Stores the window, or its max when pooling.
+// The f32 kernel's epilogue: ``v[p][j]`` holds relu(...) of position p of
+// the thread's 2 x 2 window (p = 2*dy + dx) and channel co0 + 4*cg + j,
+// already rounded to T (held in f32). Stores the window, or its max when
+// pooling.
 template <typename T>
 __device__ __forceinline__ void store_window(const float (&v)[4][4],
                                              T* __restrict__ y, int n, int H,
@@ -123,7 +117,7 @@ __device__ __forceinline__ void store_window(const float (&v)[4][4],
   }
 }
 
-// Block coordinates shared by both kernels.
+// The f32 kernel's block coordinates.
 struct Tile {
   int n, y0, x0, co0, cg, wy, wx;
   __device__ Tile(int tiles_x, int tiles_per_image) {
@@ -203,84 +197,6 @@ vggish_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int p = 0; p < 4; ++p)
       v[p][j] = round_to<T>(fmaxf(__fadd_rn(acc[p][j], b), 0.0f));
-  }
-  store_window<T>(v, y, tl.n, H, W, Cout, tl.y0 + 2 * tl.wy,
-                  tl.x0 + 2 * tl.wx, co, pool);
-}
-
-// xq (N, H, W, Cin) int8; wq (3, 3, Cin/4, Cout) int32 (4 channels a word);
-// sx (N) f32; sw (Cout) f32; bias (Cout) f32; y as vggish_conv_kernel.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-vggish_conv_int8_kernel(const int8_t* __restrict__ xq,
-                        const int* __restrict__ wq,
-                        const float* __restrict__ sx,
-                        const float* __restrict__ sw,
-                        const float* __restrict__ bias, T* __restrict__ y,
-                        int H, int W, int Cin, int Cout, int tiles_x,
-                        int tiles_per_image, int pool) {
-  __shared__ int patch[kPatch * kWordsI];
-  __shared__ __align__(16) int wsm[9 * kWordsI * kTileC];
-  const Tile tl(tiles_x, tiles_per_image);
-  const int tid = threadIdx.x;
-  const int cw = Cin / 4;  // words per position
-  const int* xn = reinterpret_cast<const int*>(xq + (size_t)tl.n * H * W * Cin);
-  int acc[4][4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[p][j] = 0;
-
-  for (int c0 = 0; c0 < cw; c0 += kWordsI) {
-    for (int i = tid; i < kPatch * kWordsI; i += kThreads) {
-      const int c = i % kWordsI, pos = i / kWordsI;
-      const int gy = tl.y0 + pos / kPatchW - 1, gx = tl.x0 + pos % kPatchW - 1;
-      int v = 0;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = xn[((size_t)gy * W + gx) * cw + c0 + c];
-      patch[i] = v;
-    }
-    for (int i = tid; i < 9 * kWordsI * kTileC; i += kThreads) {
-      const int co = i % kTileC, r = i / kTileC;  // r = tap * kWordsI + c
-      const int c = r % kWordsI, tap = r / kWordsI;
-      wsm[i] = wq[((size_t)tap * cw + c0 + c) * Cout + tl.co0 + co];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int c = 0; c < kWordsI; ++c) {
-        const int4 wv = *reinterpret_cast<const int4*>(
-            &wsm[(tap * kWordsI + c) * kTileC + tl.cg * 4]);
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int py = 2 * tl.wy + (p >> 1) + ky;
-          const int px = 2 * tl.wx + (p & 1) + kx;
-          const int a = patch[(py * kPatchW + px) * kWordsI + c];
-          acc[p][0] = __dp4a(a, wv.x, acc[p][0]);
-          acc[p][1] = __dp4a(a, wv.y, acc[p][1]);
-          acc[p][2] = __dp4a(a, wv.z, acc[p][2]);
-          acc[p][3] = __dp4a(a, wv.w, acc[p][3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int co = tl.co0 + tl.cg * 4;
-  const float sxn = sx[tl.n];
-  float v[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float scale = __fmul_rn(sxn, sw[co + j]);
-    const float b = bias[co + j];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const float yv =
-          __fadd_rn(__fmul_rn(__int2float_rn(acc[p][j]), scale), b);
-      v[p][j] = round_to<T>(fmaxf(yv, 0.0f));
-    }
   }
   store_window<T>(v, y, tl.n, H, W, Cout, tl.y0 + 2 * tl.wy,
                   tl.x0 + 2 * tl.wx, co, pool);
@@ -801,36 +717,6 @@ extern "C" int mmqg_vggish_conv(const void* x, const void* w, const void* bias,
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(y), H, W, Cin,
       Cout, tx, tpi, pool);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// xq (N,H,W,Cin) int8, wq (3,3,Cin/4,Cout) int32 (packed int8), sx (N),
-// sw (Cout) and bias (Cout) f32; y (N,H',W',Cout) in the compute type.
-// Cin % 32 == 0, Cout % 128 == 0, H and W even when pooling.
-extern "C" int mmqg_vggish_conv_int8(const void* xq, const void* wq,
-                                     const void* sx, const void* sw,
-                                     const void* bias, void* y, int N, int H,
-                                     int W, int Cin, int Cout, int pool,
-                                     int bf16, void* stream) {
-  using namespace mmqg;
-  if (bad_shape(N, H, W, Cin, Cout, pool, 4 * kWordsI))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int tx, tpi;
-  const dim3 grid = grid_for(N, H, W, Cout, &tx, &tpi);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(xq);
-  const int* wp = static_cast<const int*>(wq);
-  const float* sxp = static_cast<const float*>(sx);
-  const float* swp = static_cast<const float*>(sw);
-  const float* bp = static_cast<const float*>(bias);
-  if (bf16)
-    vggish_conv_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        xp, wp, sxp, swp, bp, static_cast<__nv_bfloat16*>(y), H, W, Cin, Cout,
-        tx, tpi, pool);
-  else
-    vggish_conv_int8_kernel<float><<<grid, kThreads, 0, s>>>(
-        xp, wp, sxp, swp, bp, static_cast<float*>(y), H, W, Cin, Cout, tx,
-        tpi, pool);
   return static_cast<int>(cudaGetLastError());
 }
 

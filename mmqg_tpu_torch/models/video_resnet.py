@@ -170,18 +170,11 @@ def _bn(bn: L.BatchNorm, x: Tensor, train: bool, relu: bool = False
     """(batchnorm of the conv output ``x`` in float32, then a ReLU when
     ``relu``; the new running state): in eval the module's own buffers, as
     JAX returns its state unchanged. An eval ``x`` padded past the
-    batchnorm's channels (to a multiple of 8) gets scale and shift 0
-    there, so those channels stay 0."""
+    batchnorm's channels (to a multiple of 8) stays 0 there
+    (:meth:`layers.BatchNorm.eval_all`)."""
     if train:
         return bn.train_forward_all(x, relu=relu)
-    pad = x.shape[-1] - bn.scale.shape[0]
-    if pad == 0:
-        return bn.eval_all(x, relu=relu), bn.state()
-    assert 0 < pad < 8, (x.shape, bn.scale.shape)
-    a = bn.scale * torch.rsqrt(bn.var + 1e-5)
-    b = bn.bias - bn.mean * a
-    return (L.affine(L._f32_up(x), F.pad(a, (0, pad)), F.pad(b, (0, pad)),
-                     relu), bn.state())
+    return bn.eval_all(x, relu=relu), bn.state()
 
 
 class Conv2Plus1D(nn.Module):

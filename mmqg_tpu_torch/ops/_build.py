@@ -36,9 +36,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "mmqg_lstm_seq": [_P] * 12 + [_I] * 6 + [_P],
     "mmqg_lstm_seq_rows": [_I] * 3,
-    "mmqg_lstm_input_proj": [_P] * 4 + [_I] * 4 + [_P],
-    "mmqg_lstm_barrier_floor": [_P] + [_I] * 3 + [_P],
-    "mmqg_trimodal_attention": [_P] * 13 + [_I] * 8 + [_P],
     "mmqg_trimodal_attention_workspace": [_I] * 7 + [_P],
     "mmqg_trimodal_attention_tiled": [_P] * 16 + [_I] * 8 + [_P],
     "mmqg_lstm_train_fwd": [_P] * 11 + [_I] * 6 + [_P],
@@ -46,7 +43,6 @@ SIGNATURES = {
     "mmqg_lstm_train_bwd": [_P] * 19 + [_I] * 6 + [_P],
     "mmqg_lstm_train_bwd_persistent": [_I] * 3,
     "mmqg_vggish_conv": [_P] * 4 + [_I] * 7 + [_P],
-    "mmqg_vggish_conv_int8": [_P] * 6 + [_I] * 7 + [_P],
     "mmqg_vggish_conv_s8": [_P] * 8 + [_I] * 7 + [_P],
     "mmqg_quantize_s8": [_P] * 4 + [_I] * 4 + [_P],
 }

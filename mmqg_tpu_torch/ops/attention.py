@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -89,14 +89,13 @@ def trimodal_attention_plain(w_t: Tensor, b: Tensor, q: Tensor,
     return ctx_t, ctx_a, ctx_v, {"text": a_t, "video": a_v, "audio": a_a}
 
 
-ROUTES = ("tiled", "per_row")
-CHUNK = 16     # positions a block of the tiled route (kAC in the kernel)
-_COUNTERS = {}  # (device, stream) -> the tiled route's arrival counters
+CHUNK = 16     # positions a block of the kernel takes (its kAC)
+_COUNTERS = {}  # (device, stream) -> the kernel's arrival counters
 
 
 def split_softmax_plain(scores: Tensor, mem: Tensor, length: Tensor,
                         chunk: int = CHUNK):
-    """The tiled route's arithmetic for one segment, in plain PyTorch:
+    """The kernel's arithmetic for one segment, in plain PyTorch:
     ``scores (B, L)`` f32, ``mem (B, L, H)``, ``length (B,)``. Each chunk
     of ``chunk`` positions below a row's length keeps (m, s, ctx) = (its
     max score, sum of exp(score - m), sum of exp(score - m) mem); the merge
@@ -138,7 +137,7 @@ def _workspace(B, Dq, Lt, La, Ht, Hv, Ha):
 
 def _counters(dev: torch.device, stream: int, n: int) -> Tensor:
     """At least ``n`` zeroed arrival counters for launches on ``stream``:
-    every launch of the tiled route leaves the ones it used at zero, so
+    every launch of the kernel leaves the ones it used at zero, so
     they are made once, and launches in one stream's order never share them
     with another stream's."""
     have = _COUNTERS.get((dev, stream))
@@ -150,20 +149,14 @@ def _counters(dev: torch.device, stream: int, n: int) -> Tensor:
 
 def trimodal_attention(w_t: Tensor, b: Tensor, q: Tensor, enc_text: Tensor,
                        enc_video: Tensor, enc_audio: Tensor, text_len: Tensor,
-                       video_len: Tensor, audio_len: Tensor, *,
-                       force_route: Optional[str] = None):
+                       video_len: Tensor, audio_len: Tensor):
     """One attention step. ``w_t (Lt+2La, Dq)``, ``q (B, Dq)`` and the
     memories ``enc_text (B, Lt, Ht)``, ``enc_video (B, La, Hv)``,
     ``enc_audio (B, La, Ha)`` share one compute dtype (f32 or bf16); ``b``
     is f32 and the lengths int32 (B,), each >= 1. Returns (ctx_text (B, Ht)
     f32, ctx_audio (B, Ha), ctx_video (B, Hv), maps {"text", "video",
-    "audio"}). On CUDA each call counts one launch
-    (``trimodal_attention.launches``) and its route (``.routes``): "tiled"
-    (needs Dq % 4 == 0 and every H % 8 == 0), or with
-    ``force_route="per_row"`` the first design, a yardstick that is never
-    chosen otherwise."""
-    if force_route not in (None,) + ROUTES:
-        raise ValueError(f"trimodal_attention: no route {force_route!r}")
+    "audio"}). On CUDA the kernel needs Dq % 4 == 0 and every H % 8 == 0,
+    and each call counts one launch (``trimodal_attention.launches``)."""
     if q.device.type == "cpu":
         return trimodal_attention_plain(w_t, b, q, enc_text, enc_video,
                                         enc_audio, text_len, video_len,
@@ -196,8 +189,7 @@ def trimodal_attention(w_t: Tensor, b: Tensor, q: Tensor, enc_text: Tensor,
                              f"{shape} {dt}")
         if not t.is_contiguous():
             raise ValueError(f"trimodal_attention: {name} is not contiguous")
-    route = force_route or ROUTES[0]
-    if route == "tiled" and (Dq % 4 or Ht % 8 or Hv % 8 or Ha % 8):
+    if Dq % 4 or Ht % 8 or Hv % 8 or Ha % 8:
         raise ValueError(f"trimodal_attention: the tiled kernel needs Dq % 4"
                          f" == 0 and H % 8 == 0 (Dq={Dq}, H={Ht}/{Hv}/{Ha})")
     lib = _build.library()
@@ -214,28 +206,22 @@ def trimodal_attention(w_t: Tensor, b: Tensor, q: Tensor, enc_text: Tensor,
     bf16 = int(dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "tiled":
-            n_ms, n_ctx, n_count = _workspace(*shape)
-            part_ms = torch.empty((n_ms,), dtype=torch.float32, device=dev)
-            part_ctx = torch.empty((n_ctx,), dtype=torch.float32, device=dev)
-            count = _counters(dev, stream, n_count)
-            rc = lib.mmqg_trimodal_attention_tiled(
-                *ptrs, part_ms.data_ptr(), part_ctx.data_ptr(),
-                count.data_ptr(), *shape, bf16, stream)
-        else:
-            rc = lib.mmqg_trimodal_attention(*ptrs, *shape, bf16, stream)
-    _build.check(rc, "mmqg_trimodal_attention"
-                 + ("_tiled" if route == "tiled" else ""))
+        n_ms, n_ctx, n_count = _workspace(*shape)
+        part_ms = torch.empty((n_ms,), dtype=torch.float32, device=dev)
+        part_ctx = torch.empty((n_ctx,), dtype=torch.float32, device=dev)
+        count = _counters(dev, stream, n_count)
+        rc = lib.mmqg_trimodal_attention_tiled(
+            *ptrs, part_ms.data_ptr(), part_ctx.data_ptr(), count.data_ptr(),
+            *shape, bf16, stream)
+    _build.check(rc, "mmqg_trimodal_attention_tiled")
     with _build.COUNT_LOCK:
         trimodal_attention.launches += 1
-        trimodal_attention.routes[route] += 1
     return ctx_t, ctx_a, ctx_v, {"text": maps[:, :Lt],
                                  "video": maps[:, Lt:Lt + La],
                                  "audio": maps[:, Lt + La:]}
 
 
 trimodal_attention.launches = 0
-trimodal_attention.routes = dict.fromkeys(ROUTES, 0)  # launches by route
 
 
 def trimodal_attention_xla(attn: TriModalAttention, query: Tensor,

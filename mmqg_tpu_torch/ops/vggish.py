@@ -218,10 +218,11 @@ def conv3x3_relu_int8_plain(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
     return _pool2(y) if pool else y
 
 
-INT8_ROUTES = ("wgmma", "dp4a")
-
-
-def _int8_args(fn, xq, wq, sx, sw, b, dtype):
+def _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=None, sx_next=None,
+             fn="conv3x3_relu_int8") -> Tensor:
+    """Launch the s8 tensor-core conv (``mmqg_vggish_conv_s8``): y in
+    ``dtype``, folding each example's max into ``amax`` when given, or the
+    next layer's int8 input when ``sx_next`` is given."""
     if xq.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {xq.device}")
     if dtype not in _DTYPES:
@@ -233,15 +234,6 @@ def _int8_args(fn, xq, wq, sx, sw, b, dtype):
         "xq": (xq, (N, H, W, Cin), torch.int8),
         "wq": (wq, (3, 3, Cin, Cout), torch.int8), "sx": (sx, (N,), f32),
         "sw": (sw, (Cout,), f32), "b": (b, (Cout,), f32)})
-    return N, H, W, Cin, Cout
-
-
-def _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=None, sx_next=None,
-             fn="conv3x3_relu_int8") -> Tensor:
-    """Launch the s8 tensor-core conv (``mmqg_vggish_conv_s8``): y in
-    ``dtype``, folding each example's max into ``amax`` when given, or the
-    next layer's int8 input when ``sx_next`` is given."""
-    N, H, W, Cin, Cout = _int8_args(fn, xq, wq, sx, sw, b, dtype)
     _check_shape(fn, H, W, Cin, Cout, pool, 32)
     wk = pack_weights_kmajor(wq, torch.int8)   # the GEMM's K-major B
     Ho, Wo = (H // 2, W // 2) if pool else (H, W)
@@ -258,53 +250,25 @@ def _conv_s8(xq, wq, sx, sw, b, pool, dtype, amax=None, sx_next=None,
     _build.check(rc, "mmqg_vggish_conv_s8")
     with _build.COUNT_LOCK:
         conv3x3_relu_int8.launches += 1
-        conv3x3_relu_int8.routes["wgmma"] += 1
     return y
 
 
 def conv3x3_relu_int8(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,
                       b: Tensor, *, pool: bool,
-                      dtype: torch.dtype = torch.bfloat16,
-                      force_route: Optional[str] = None) -> Tensor:
+                      dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """One quantized VGGish conv layer: ``xq (N, H, W, Cin)`` and ``wq
     (3, 3, Cin, Cout)`` int8, per-example ``sx (N,)``, per-channel ``sw
     (Cout,)`` and bias ``b (Cout,)`` f32. Returns relu(float(xq * wq) *
-    (sx * sw) + b) in ``dtype``, 2x2-max-pooled when ``pool``. On CUDA each
-    call counts one launch (``conv3x3_relu_int8.launches``) and its route
-    (``.routes``): the s8 tensor-core kernel ("wgmma"), or with
-    ``force_route="dp4a"`` the SIMT ``__dp4a`` kernel of the first port, a
-    yardstick that is never chosen otherwise."""
-    if force_route not in (None,) + INT8_ROUTES:
-        raise ValueError(f"conv3x3_relu_int8: no route {force_route!r}")
+    (sx * sw) + b) in ``dtype``, 2x2-max-pooled when ``pool``. On CUDA it
+    runs the s8 tensor-core kernel and each call counts one launch
+    (``conv3x3_relu_int8.launches``)."""
     if xq.device.type == "cpu":
         return conv3x3_relu_int8_plain(xq, wq, sx, sw, b, pool=pool,
                                        dtype=dtype)
-    if force_route != "dp4a":
-        return _conv_s8(xq, wq, sx, sw, b, pool, dtype)
-    N, H, W, Cin, Cout = _int8_args("conv3x3_relu_int8", xq, wq, sx, sw, b,
-                                    dtype)
-    _check_shape("conv3x3_relu_int8", H, W, Cin, Cout, pool, 32)
-    # four consecutive input channels of one output channel per int32 word
-    # (little-endian: channel 4k + i in byte i), the operand of __dp4a
-    packed = wq.reshape(3, 3, Cin // 4, 4, Cout).permute(
-        0, 1, 2, 4, 3).contiguous().view(torch.int32)[..., 0]
-    Ho, Wo = (H // 2, W // 2) if pool else (H, W)
-    y = torch.empty((N, Ho, Wo, Cout), dtype=dtype, device=xq.device)
-    with torch.cuda.device(xq.device):
-        rc = _build.library().mmqg_vggish_conv_int8(
-            xq.data_ptr(), packed.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            b.data_ptr(), y.data_ptr(), N, H, W, Cin, Cout, int(pool),
-            int(dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "mmqg_vggish_conv_int8")
-    with _build.COUNT_LOCK:
-        conv3x3_relu_int8.launches += 1
-        conv3x3_relu_int8.routes["dp4a"] += 1
-    return y
+    return _conv_s8(xq, wq, sx, sw, b, pool, dtype)
 
 
 conv3x3_relu_int8.launches = 0
-conv3x3_relu_int8.routes = dict.fromkeys(INT8_ROUTES, 0)  # launches by route
 
 
 def conv3x3_relu_int8_quant(xq: Tensor, wq: Tensor, sx: Tensor, sw: Tensor,

@@ -1,4 +1,4 @@
-"""K2's tiled route, modelled on the CPU.
+"""K2's tiled kernel, modelled on the CPU.
 
 The CUDA kernel splits each segment's positions into chunks, keeps a
 flash-decoding partial per (row, chunk) -- the chunk's max score m, the sum
@@ -22,7 +22,7 @@ import torch
 
 from mmqg_tpu.ops import attention as JA
 from mmqg_tpu.ops.attention_pallas import trimodal_attention_pallas
-from mmqg_tpu_torch.ops.attention import (ROUTES, TriModalAttention,
+from mmqg_tpu_torch.ops.attention import (TriModalAttention,
                                           split_softmax_plain,
                                           trimodal_attention)
 
@@ -61,7 +61,7 @@ def _refs(lengths: str):
 
 
 def _split_model(lengths: str, chunk: int):
-    """The tiled route's outputs by ``split_softmax_plain``, one segment at
+    """The tiled kernel's outputs by ``split_softmax_plain``, one segment at
     a time on the f32 scores q . W + b."""
     params, arrays, lens = _case(lengths)
     attn = TriModalAttention(*(torch.tensor(np.asarray(p)) for p in params))
@@ -92,19 +92,14 @@ def test_split_softmax_and_merge_match_xla_and_pallas(lengths, chunk):
                                        err_msg=f"maps {name}")
 
 
-@pytest.mark.parametrize("force_route", [None] + list(ROUTES))
-def test_cpu_trimodal_attention_counts_no_launch_and_no_route(force_route):
-    """On CPU tensors K2 runs its plain version whatever route is asked."""
+def test_cpu_trimodal_attention_counts_no_launch_and_no_route():
+    """On CPU tensors K2 runs its plain version and counts no launch."""
     params, arrays, lens = _case("mid", seed=1)
     attn = TriModalAttention(*(torch.tensor(np.asarray(p)) for p in params))
     args = (*attn.weights(torch.float32),
             *(torch.from_numpy(a) for a in arrays),
             *(torch.from_numpy(n) for n in lens))
-    before = trimodal_attention.launches, dict(trimodal_attention.routes)
-    out = trimodal_attention(*args, force_route=force_route)
-    assert (trimodal_attention.launches,
-            trimodal_attention.routes) == before
-    assert set(before[1]) == {"tiled", "per_row"}
+    before = trimodal_attention.launches
+    out = trimodal_attention(*args)
+    assert trimodal_attention.launches == before
     assert out[0].shape == (B, Ht) and out[3]["audio"].shape == (B, La)
-    with pytest.raises(ValueError, match="no route"):
-        trimodal_attention(*args, force_route="fused")

@@ -151,19 +151,14 @@ def test_cpu_int8_wrappers_count_no_launch_and_no_route():
     wq, sw = V.quantize_weights(torch.from_numpy(
         (rng.randn(3, 3, 32, 128) * 0.1).astype(np.float32)))
     b = torch.zeros(128)
-    before = (V.conv3x3_relu_int8.launches, V.quantize_s8.launches,
-              dict(V.conv3x3_relu_int8.routes))
+    before = V.conv3x3_relu_int8.launches, V.quantize_s8.launches
     xq, sx = V.quantize_s8(x)
-    y = {r: V.conv3x3_relu_int8(xq, wq, sx, sw, b, pool=True,
-                                dtype=torch.float32, force_route=r)
-         for r in (None,) + V.INT8_ROUTES}
+    y = V.conv3x3_relu_int8(xq, wq, sx, sw, b, pool=True,
+                            dtype=torch.float32)
     q2, s2 = V.conv3x3_relu_int8_quant(xq, wq, sx, sw, b, pool=True,
                                        dtype=torch.float32)
-    assert (V.conv3x3_relu_int8.launches, V.quantize_s8.launches,
-            V.conv3x3_relu_int8.routes) == before
-    assert set(before[2]) == {"wgmma", "dp4a"}
-    assert torch.equal(y[None], y["dp4a"]) and torch.equal(y[None],
-                                                            y["wgmma"])
-    assert torch.equal(q2, V.quantize_activations(y[None])[0])
-    with pytest.raises(ValueError, match="no route"):
-        V.conv3x3_relu_int8(xq, wq, sx, sw, b, pool=True, force_route="mma")
+    assert (V.conv3x3_relu_int8.launches, V.quantize_s8.launches) == before
+    assert torch.equal(y, V.conv3x3_relu_int8_plain(xq, wq, sx, sw, b,
+                                                    pool=True,
+                                                    dtype=torch.float32))
+    assert torch.equal(q2, V.quantize_activations(y)[0])

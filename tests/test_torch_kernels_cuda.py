@@ -123,15 +123,12 @@ def _attn_args(dev, dtype, B=5, Dq=40, Lt=37, La=11, Ht=64, Hv=48, Ha=16,
             t(rng.randn(B, La, Hv)), t(rng.randn(B, La, Ha)), *lens)
 
 
-def _attn_check(args, force=None, route="tiled"):
+def _attn_check(args):
     """K2 kernel vs plain at 1e-5 (both compute in f32 from the same
-    operands); the call must take ``route``."""
-    before = trimodal_attention.launches, dict(trimodal_attention.routes)
-    got = trimodal_attention(*args, force_route=force)
-    assert trimodal_attention.launches == before[0] + 1
-    assert {k: v - before[1][k] for k, v in
-            trimodal_attention.routes.items()} == {
-        r: int(r == route) for r in before[1]}
+    operands); the call must count one launch."""
+    before = trimodal_attention.launches
+    got = trimodal_attention(*args)
+    assert trimodal_attention.launches == before + 1
     ref = trimodal_attention_plain(*args)
     torch.cuda.synchronize()
     for g, r in zip(got[:3], ref[:3]):
@@ -172,12 +169,6 @@ def test_trimodal_attention_tiled_at_the_flagship_shapes(dev, dtype, B, lens):
         assert torch.equal(g, a)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_trimodal_attention_per_row_route_when_forced(dev, dtype):
-    _attn_check(_attn_args(dev, dtype, B=33), force="per_row",
-                route="per_row")
-
-
 def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
     args = list(_attn_args(dev, torch.bfloat16))
     args[3] = args[3].float()   # f32 text memory with a bf16 query
@@ -186,7 +177,6 @@ def test_trimodal_attention_kernel_rejects_mixed_dtypes(dev):
     args = list(_attn_args(dev, torch.bfloat16, Dq=42))
     with pytest.raises(ValueError, match="Dq % 4"):
         trimodal_attention(*args)
-    trimodal_attention(*args, force_route="per_row")  # the first design
 
 
 # K4, max |kernel - plain| of the forward, and of each gradient over its
@@ -367,7 +357,7 @@ def test_vggish_conv_int8_kernel_matches_plain_exactly(dev, pool, dtype,
     assert torch.equal(got, ref)
 
 
-# the s8 tensor-core route: every Cin of VGGish (64: a K slice spans two
+# the s8 tensor-core kernel: every Cin of VGGish (64: a K slice spans two
 # taps), pool on and off, dynamic and static scales, N=3 at 12 x 10 (120
 # positions an example: M tiles straddle examples); bit for bit
 @pytest.mark.parametrize("Cin,Cout", [(64, 128), (128, 256), (256, 256),
@@ -377,14 +367,14 @@ def test_vggish_conv_int8_kernel_matches_plain_exactly(dev, pool, dtype,
 def test_vggish_conv_int8_wgmma_matches_plain_exactly(dev, Cin, Cout, pool,
                                                       static):
     args = _int8_layer_args(dev, Cin=Cin, Cout=Cout, static=static)
-    before = dict(V.conv3x3_relu_int8.routes)
+    before = V.conv3x3_relu_int8.launches
     for dtype in (torch.bfloat16, torch.float32):
         got = V.conv3x3_relu_int8(*args, pool=pool, dtype=dtype)
         ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=dtype)
         torch.cuda.synchronize()
         assert float(ref.abs().max()) > 0
         assert torch.equal(got, ref)
-    assert V.conv3x3_relu_int8.routes == dict(before, wgmma=before["wgmma"] + 2)
+    assert V.conv3x3_relu_int8.launches == before + 2
 
 
 @pytest.mark.parametrize("N,H,W", [(1, 8, 8), (37, 12, 8), (3, 12, 10)])
@@ -461,18 +451,6 @@ def test_embed_examples_int8_on_the_card_matches_its_plain_layers(dev):
                                           dtype=torch.float32)
                 assert float(ref.abs().max()) > 0
                 assert torch.equal(y.cpu(), ref)
-
-
-@pytest.mark.parametrize("pool", [True, False])
-def test_vggish_conv_int8_dp4a_route_when_forced(dev, pool):
-    args = _int8_layer_args(dev)
-    before = dict(V.conv3x3_relu_int8.routes)
-    got = V.conv3x3_relu_int8(*args, pool=pool, dtype=torch.bfloat16,
-                              force_route="dp4a")
-    assert V.conv3x3_relu_int8.routes == dict(before, dp4a=before["dp4a"] + 1)
-    ref = V.conv3x3_relu_int8_plain(*args, pool=pool, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ref)
 
 
 def test_vggish_kernels_reject_what_they_cannot_take(dev):

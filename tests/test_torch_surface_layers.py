@@ -6,6 +6,9 @@ against the JAX package on the CPU, f32:
 * ``layers.maxpool2d(stride=)``: overlapping windows (window 3, stride 2;
   window 2, stride 1), a stride above the window, and the stride-=-window
   crop path, forward and gradient within 1e-6;
+* ``layers.BatchNorm.eval_all`` of an ``x`` up to 7 channels wider than
+  the batchnorm (a conv padded to a multiple of 8): its own channels bit
+  for bit as unpadded, the rest exactly 0;
 * ``layers.lstm_dims``, ``lstm_zero_state`` and ``lstm_scan``'s dropout
   (rate 0 is JAX's scan within 1e-6; with a generator, dropout between the
   layers as ``lstm_step`` draws it: JAX's threefry masks are not
@@ -99,6 +102,26 @@ def _lstm(seed=2, In=5, H=6, layers=3):
         torch_layers.append(L.LSTMLayer(*(torch.from_numpy(a)
                                           for a in (wx, wh, b))))
     return params, L.LSTM(torch_layers)
+
+
+def test_batchnorm_eval_all_zeroes_the_channels_padded_past_it():
+    rng = np.random.RandomState(5)
+    C = 13
+    bn = L.BatchNorm(*(torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(C), rng.randn(C), rng.randn(C), rng.rand(C) + 0.5)))
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(rng.randn(2, 3, 4, C)).to(dtype)
+        for pad in (1, 3, 7):
+            extra = torch.from_numpy(rng.randn(2, 3, 4, pad)).to(dtype)
+            wide = torch.cat([x, extra], dim=-1)
+            for relu in (False, True):
+                got = bn.eval_all(wide, relu=relu)
+                assert got.dtype == dtype and got.shape == wide.shape
+                assert torch.equal(got[..., :C], bn.eval_all(x, relu=relu))
+                assert torch.equal(got[..., C:], torch.zeros_like(extra))
+    for width in (C - 1, C + 8):
+        with pytest.raises(ValueError, match="channels"):
+            bn.eval_all(torch.zeros(2, width))
 
 
 def test_lstm_dims_and_zero_state_match_jax():
