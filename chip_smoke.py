@@ -89,8 +89,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             (R(2+1)D-18 at torchvision's widths, 512-d features), random
             weights, the same 32 requests, bf16: trimodal + attention +
             R(2+1)D (greedy and beam: K1 3x, K2 21x tiled on B or B * K
-            rows, the int8 conv 5x per generate(); encode and decode wall,
-            the trunk's device time, the encode's peak memory),
+            rows, the int8 conv 5x per generate(), the batchnorm epilogue
+            34x a trunk; encode and decode wall, the trunk's device time,
+            the encode's peak memory; at one trunk's shapes at B=32 and
+            101 frames each distinct epilogue call bit for bit with its
+            plain version, with its kernel, plain and bound ms),
             text_video + non-attention + conv-LSTM (greedy, sampling, beam:
             K1 4x, K2 none) and text + attention (greedy: K1 3x, K2 21x, no
             int8); 320 x 240 frames through encode with R(2+1)D (the resize
@@ -247,8 +250,10 @@ from mmqg_tpu_torch.models import decoder as decoder_module
 from mmqg_tpu_torch.models import frontends
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
+from mmqg_tpu_torch.models import video_resnet as VR
 from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops import _build
+from mmqg_tpu_torch.ops import bn_epilogue as BNE
 from mmqg_tpu_torch.ops import vggish as V
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
@@ -1437,6 +1442,7 @@ def _reset_launches() -> None:
         counts.update(dict.fromkeys(counts, 0))
     V.vggish_conv.launches = V.conv3x3_relu_int8.launches = 0
     V.quantize_s8.launches = 0
+    BNE.bn_epilogue.launches = 0
 
 
 def check_routes(what: str, routes: dict, launches: int) -> None:
@@ -2711,6 +2717,10 @@ CONFIG_STRATEGIES = {CONFIG_CASES[0]: ("greedy", "beam"),
                      CONFIG_CASES[2]: ("greedy",)}
 RESNET_TRAIN_B = 16
 NON_ATTN_TRAIN_B = 32
+# the batchnorm epilogue's launches in one inference trunk (two in the stem,
+# four a block) and the clips it is checked at: the serving cell's bucket
+EPILOGUES_A_TRUNK = 34
+EPILOGUE_CLIPS = (32, 101, 112, 112, 3)
 # the frames cap of the card vs CPU check of R(2+1)D (the CPU runs the
 # trunk at this many frames a clip, both devices pinned to it)
 CPU_RESNET_FRAMES = 16
@@ -2788,7 +2798,7 @@ def _config_serving(card: str, case, req) -> dict:
                       dtype=torch.bfloat16)
     pipe.generate(*req)                      # warm-up: cuDNN plans, caches
     torch.cuda.synchronize()
-    launches = {}
+    launches, epilogues = {}, {}
     real = decoder_module.trimodal_attention
     for strategy in CONFIG_STRATEGIES[case]:
         k2_rows = []
@@ -2800,6 +2810,7 @@ def _config_serving(card: str, case, req) -> dict:
         if strategy == "beam":
             pipe.generate(*req, strategy="beam", beam_size=BEAM_SIZE)
         _reset_launches()
+        trunks = VR.convs["trunks"]
         with mock.patch.object(decoder_module, "trimodal_attention",
                                counting):
             questions = pipe.generate(*req, strategy=strategy,
@@ -2808,6 +2819,9 @@ def _config_serving(card: str, case, req) -> dict:
         launches[strategy] = _launches()
         check_config_launches(f"configs: {name} {strategy} generate() of "
                               f"{N_REQUESTS}", mc, launches[strategy])
+        epilogues[strategy] = check_epilogue_launches(
+            f"configs: {name} {strategy} generate()", mc,
+            VR.convs["trunks"] - trunks)
         rows = N_REQUESTS * (BEAM_SIZE if strategy == "beam" else 1)
         if k2_rows and set(k2_rows) != {rows}:
             raise AssertionError(f"{name} {strategy}: K2 rows {k2_rows}")
@@ -2815,7 +2829,8 @@ def _config_serving(card: str, case, req) -> dict:
                 isinstance(q, str) for q in questions):
             raise AssertionError(f"{name}: not one question a request")
     qps, wall, enc, dec, caps = _time_serving(pipe, req)
-    out = {"launches": launches, "encode_ms": enc, "decode_ms": dec}
+    out = {"launches": launches, "epilogue_launches": epilogues,
+           "encode_ms": enc, "decode_ms": dec}
     log(f"configs: {name} greedy batch {N_REQUESTS} bf16: {qps:.1f} "
         f"questions/s ({wall:.1f} ms generate()); encode {enc:.2f} ms, "
         f"decode {dec:.2f} ms (medians of 3; caps {caps}) [{card}]")
@@ -2836,6 +2851,7 @@ def _config_serving(card: str, case, req) -> dict:
             for line in top.splitlines():
                 log(f"  {line}")
         _conv_layouts(card, pipe.model.video_enc, prepared.shape[:2])
+        out["bn_epilogue"] = _bn_epilogue_check(card, pipe.model.video_enc)
         with torch.no_grad():
             _, peak = _peak_mb(lambda: DEC.encode(
                 pipe.model, mc, batch, dtype=torch.bfloat16, **caps))
@@ -2847,6 +2863,143 @@ def _config_serving(card: str, case, req) -> dict:
             f"memory {peak:.0f} MB (torch.cuda.max_memory_allocated) [{card}]")
     out["model"], out["pipe"] = model, pipe
     return out
+
+
+def _resnet_serves(mc) -> bool:
+    return mc.video_encoder == "resnet" and mc.mode != "text"
+
+
+def check_epilogue_launches(what: str, mc, trunks: int) -> int:
+    """The batchnorm epilogue's launches since ``_reset_launches``: 34 a
+    trunk of an R(2+1)D configuration (``trunks`` >= 1), none elsewhere."""
+    got = BNE.bn_epilogue.launches
+    want = EPILOGUES_A_TRUNK * trunks if _resnet_serves(mc) else 0
+    log(f"{what}: {trunks} R(2+1)D trunks, bn_epilogue launched {got} "
+        f"(want {want})")
+    if got != want or (_resnet_serves(mc) and trunks < 1):
+        raise AssertionError(f"{what}: bn_epilogue launches {got} != {want}"
+                             f" ({trunks} trunks)")
+    return got
+
+
+def _bits(t):
+    """A bf16 or f32 tensor's bits, so -0.0 and 0.0 differ."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _epilogue_kind(kw) -> str:
+    if kw.get("residual") is None:
+        return "none"
+    return "identity" if kw.get("res_a") is None else "down"
+
+
+def _epilogue_inputs(shape, kind: str, gen):
+    """Random bf16 conv outputs of ``shape`` with f32 scales and shifts,
+    and the shortcut of ``kind`` (an f32 tensor, or a second conv output
+    with its own scale and shift)."""
+    C = shape[-1]
+
+    def act(dtype):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(3
+                                                                     ).to(dtype)
+
+    def scale_shift():
+        return (torch.rand(C, generator=gen, device="cuda") + 0.5,
+                torch.randn(C, generator=gen, device="cuda"))
+
+    x = act(torch.bfloat16)
+    a, b = scale_shift()
+    kw = {}
+    if kind == "identity":
+        kw["residual"] = act(torch.float32)
+    elif kind == "down":
+        ra, rb = scale_shift()
+        kw.update(residual=act(torch.bfloat16), res_a=ra, res_b=rb)
+    return x, a, b, kw
+
+
+def _bn_epilogue_check(card: str, venc) -> dict:
+    """The batchnorm epilogue kernel at the shapes R(2+1)D-18's bf16
+    inference trunk gives it at the serving cell's bucket (B=32, 101
+    frames of 112 px): one trunk's 34 calls recorded; for each distinct
+    call (shape, shortcut, outputs) the kernel against its plain PyTorch
+    version on the same card tensors, bit for bit, each output; the
+    kernel's device time (profiler), the plain version's (CUDA events) and
+    the bound of its bytes at the memory rate; summed over the trunk, and
+    alone at stage 1's 144-wide midplanes."""
+    calls = []
+    real = BNE.bn_epilogue
+
+    def recording(x, a, b, **kw):
+        calls.append((tuple(x.shape), _epilogue_kind(kw),
+                      kw.get("relu", False), kw.get("cast") is not None,
+                      kw.get("keep", True)))
+        return real(x, a, b, **kw)
+
+    # the wrapper counts its launches on the name it is patched under
+    recording.launches = 0
+    clips = torch.rand(EPILOGUE_CLIPS, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    with torch.no_grad(), mock.patch.object(BNE, "bn_epilogue", recording):
+        venc.temporal(clips, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    del clips
+    if len(calls) != EPILOGUES_A_TRUNK:
+        raise AssertionError(f"bn_epilogue: {len(calls)} calls a trunk")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    stage1 = None
+    for sig in sorted(set(calls)):
+        shape, kind, relu, cast, keep = sig
+        n = calls.count(sig)
+        x, a, b, kw = _epilogue_inputs(shape, kind, gen)
+        kw.update(relu=relu, cast=torch.bfloat16 if cast else None,
+                  keep=keep)
+        with torch.no_grad():
+            got = real(x, a, b, **kw)
+            want = BNE.bn_epilogue_plain(x, a, b, **kw)
+            for g, w in zip(got, want):
+                if (g is None) != (w is None) or (w is not None and not (
+                        g.dtype == w.dtype and torch.equal(_bits(g),
+                                                           _bits(w)))):
+                    raise AssertionError(f"bn_epilogue {sig}: the kernel "
+                                         f"is not its plain version")
+            outs = [t for t in got if t is not None]
+            moved = nbytes(x, a, b, *[t for t in kw.values()
+                                      if isinstance(t, torch.Tensor)], *outs)
+            del got, want, outs
+            ms = device_ms(lambda: real(x, a, b, **kw),
+                           ["bn_epilogue_kernel"], iters=20)
+            plain_ms = cuda_ms(lambda: BNE.bn_epilogue_plain(x, a, b, **kw),
+                               iters=5, warmup=1)
+        row = {"shape": list(shape), "shortcut": kind, "relu": relu,
+               "out": ("bf16+f32" if cast and keep else
+                       "bf16" if cast else "f32"),
+               "calls": n, "ms": ms, "plain_ms": plain_ms,
+               **bound(0, moved, torch.bfloat16)}
+        rows.append(row)
+        for k in total:
+            total[k] += n * row[k]
+        if shape[-1] == 144 and kind == "none" and stage1 is None:
+            stage1 = row
+        del x, a, b, kw
+        torch.cuda.empty_cache()
+        log(f"  bn_epilogue {tuple(shape)} {kind} {row['out']} x{n}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms ({moved / 1e9:.3f} GB)")
+    log(f"configs: bn_epilogue over one bf16 trunk on {EPILOGUE_CLIPS}: "
+        f"{len(rows)} distinct calls, each bit for bit with its plain "
+        f"version; kernel {total['ms']:.2f} ms, plain "
+        f"{total['plain_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms in "
+        f"its {EPILOGUES_A_TRUNK} calls; at stage 1's "
+        f"{tuple(stage1['shape'])}: kernel {stage1['ms']:.3f} ms, plain "
+        f"{stage1['plain_ms']:.3f} ms, bound {stage1['bound_ms']:.3f} ms "
+        f"[{card}]")
+    return {"max_abs_err": 0.0, "ms": stage1["ms"],
+            "plain_ms": stage1["plain_ms"], "bound_ms": stage1["bound_ms"],
+            "bound_by": stage1["bound_by"], "at": stage1["shape"],
+            "trunk": {"calls": EPILOGUES_A_TRUNK, **total}, "calls": rows}
 
 
 def _conv_layouts(card: str, venc, bt) -> None:
@@ -5233,7 +5386,19 @@ def main() -> None:
          "launches_train_features": on_features("quantize_s8"),
          "launches_model_axis": on_axis("quantize_s8"),
          "launches_dp": dp["serving"]["launches"]["quantize_s8"],
-         **int8["quant"]}]
+         **int8["quant"]},
+        {"name": "bn_epilogue", "route": "cuda",
+         "design": "one grid-stride pass over a conv output, 8 channels a "
+                   "thread: eval batchnorm as one fma, the block's shortcut "
+                   "(f32, or the down conv's output through its own "
+                   "batchnorm), ReLU, bf16 and/or f32 stores (port-only: "
+                   "XLA fuses these in JAX)",
+         "source": "mmqg_tpu_torch/csrc/bn_epilogue.cu",
+         "replaces": "mmqg_tpu/models/video_resnet.py:101",
+         "launches_by_config": {
+             name: c["epilogue_launches"]["greedy"]
+             for name, c in configs["serving"].items()},
+         **configs["serving"][config_name(CONFIG_CASES[0])]["bn_epilogue"]}]
     log("offline: " + json.dumps({
         "stage_ms": offline["stage_ms"], "splits": offline["splits"],
         "train": {k: v for k, v in offline["train"].items()

@@ -445,24 +445,22 @@ class BatchNorm(nn.Module):
                      "count": self.count + 1}
         return y, state
 
-    def eval_all(self, x: Tensor, eps: float = 1e-5, *,
-                 relu: bool = False) -> Tensor:
-        """Eval batchnorm (then a ReLU when ``relu``) of a conv output
-        ``x``, in float32 (float64 for float64 ``x``) whatever ``x``'s
-        dtype: ``layers.batchnorm(train=False)`` of ``x`` cast to float32,
-        folded to one scale and shift per channel. An ``x`` up to 7
-        channels wider than the batchnorm (a conv whose channels were
-        padded to a multiple of 8) gets scale and shift 0 past them, so
-        those channels come out 0."""
+    def eval_scale_shift(self, channels: int, eps: float = 1e-5
+                         ) -> Tuple[Tensor, Tensor]:
+        """Eval batchnorm folded to one scale ``a`` and shift ``b`` per
+        channel (``x * a + b``), derived from the parameters and buffers
+        on every call. ``channels`` up to 7 more than the batchnorm's (a
+        conv whose channels were padded to a multiple of 8) get scale and
+        shift 0 past them, so those channels come out 0."""
         a = self.scale * torch.rsqrt(self.var + eps)
         b = self.bias - self.mean * a
-        pad = x.shape[-1] - a.shape[0]
+        pad = channels - a.shape[0]
         if pad:
             if not 0 < pad < 8:
-                raise ValueError(f"eval_all: {x.shape[-1]} channels for a "
-                                 f"batchnorm of {a.shape[0]}")
+                raise ValueError(f"eval_scale_shift: {channels} channels "
+                                 f"for a batchnorm of {a.shape[0]}")
             a, b = F.pad(a, (0, pad)), F.pad(b, (0, pad))
-        return affine(_f32_up(x), a, b, relu)
+        return a, b
 
     def state(self) -> Dict[str, Tensor]:
         """The running statistics (the buffers themselves)."""

@@ -51,13 +51,23 @@ output channels both multiples of 8; ``unaligned``: the rest, 14 of 37 in
 a training trunk at the published widths, none in an inference trunk;
 ``padded``: launches whose channels were padded, 14 an inference trunk at
 the published widths); ``weight_casts`` counts the weight casts, 37 a
-trunk, and the bytes they write, at the launched widths.
+trunk, and the bytes they write, at the launched widths. The epilogues
+after the convs, 34 an inference trunk (two in the stem, four a block),
+count as ``ops.bn_epilogue.bn_epilogue.launches`` on the card.
 
 Casts follow the JAX package: a conv takes its input and weight in the
 compute dtype and its result is cast to float32; batchnorm runs in float32;
-the stream between convs is float32. The cast of a conv's output is the
-first step of the batchnorm after it (and a ReLU that follows is the
-last), so that training keeps each conv output once, in the compute dtype
+the stream between convs is float32. What follows a conv is one epilogue
+(:func:`_epilogue`): the cast of its output to float32, the batchnorm, in a
+block's last one the shortcut (the block's input, or its ``down`` conv's
+output through ``down_bn``) and the ReLU, and the cast to the compute dtype
+for the next conv; it keeps the float32 value only where a shortcut or the
+trunk's pooling reads it. An inference trunk's epilogues are
+:func:`ops.bn_epilogue.bn_epilogue`: on the card one launch each of a
+hand-written kernel that rounds as PyTorch's operations do, so its results
+are theirs bit for bit; the kernel has no backward, so an inference trunk
+on the card runs outside autograd or on parameters that need no gradient.
+Training keeps each conv output once, in the compute dtype
 (``layers._BatchNormAll``). Batchnorm here is never masked: in
 training its statistics cover every position (``layers.BatchNorm
 .train_forward_all``). Train-mode calls return the new running statistics
@@ -74,6 +84,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmqg_tpu_torch.models import layers as L
+from mmqg_tpu_torch.ops import bn_epilogue as E
 
 Tensor = torch.Tensor
 
@@ -83,6 +94,10 @@ TEMPORAL_DOWNSAMPLE = 8
 
 convs = {"trunks": 0, "aligned": 0, "unaligned": 0, "padded": 0}
 weight_casts = {"calls": 0, "bytes": 0}
+
+# an epilogue's output: (the next conv's input in the compute dtype, the
+# float32 value), either None where nothing reads it
+Act = Tuple[Optional[Tensor], Optional[Tensor]]
 
 
 def midplanes(cin: int, cout: int, kt: int = 3, ks: int = 3) -> int:
@@ -165,16 +180,42 @@ def _conv_ndhwc(x: Tensor, w: Tensor, stride: Tuple[int, int, int],
     return y.permute(0, 2, 3, 4, 1)
 
 
-def _bn(bn: L.BatchNorm, x: Tensor, train: bool, relu: bool = False
-        ) -> Tuple[Tensor, Dict]:
-    """(batchnorm of the conv output ``x`` in float32, then a ReLU when
-    ``relu``; the new running state): in eval the module's own buffers, as
-    JAX returns its state unchanged. An eval ``x`` padded past the
-    batchnorm's channels (to a multiple of 8) stays 0 there
-    (:meth:`layers.BatchNorm.eval_all`)."""
+def _epilogue(bn: L.BatchNorm, y: Tensor, train: bool, dtype: torch.dtype,
+              *, shortcut: Optional[Tensor] = None,
+              down_bn: Optional[L.BatchNorm] = None, cast: bool = True,
+              keep: bool = False) -> Tuple[Act, List[Dict]]:
+    """The batchnorm ``bn`` of the conv output ``y``, plus a block's
+    ``shortcut`` (its input in float32, or its ``down`` conv's output
+    through ``down_bn``), then a ReLU. Returns ((the result
+    in ``dtype`` for the next conv when ``cast``, in float32 when
+    ``keep``), the new running states of ``bn`` and ``down_bn``).
+
+    Training: the batchnorms' batch statistics under autograd
+    (:meth:`layers.BatchNorm.train_forward_all`), the float32 result for
+    both (each conv casts its input). Inference: the running statistics
+    folded to a scale and shift per channel (zero past a batchnorm's
+    channels where the conv was padded, so those stay 0), through
+    :func:`ops.bn_epilogue.bn_epilogue`: one kernel launch on the card,
+    its plain PyTorch version on the CPU."""
     if train:
-        return bn.train_forward_all(x, relu=relu)
-    return bn.eval_all(x, relu=relu), bn.state()
+        y, state = bn.train_forward_all(y, relu=shortcut is None)
+        states = [state]
+        if shortcut is not None:
+            if down_bn is not None:
+                shortcut, down_state = down_bn.train_forward_all(shortcut)
+                states.append(down_state)
+            y = torch.relu(y + shortcut)
+        return (y, y), states
+    C = y.shape[-1]
+    a, b = bn.eval_scale_shift(C)
+    res_a = res_b = None
+    states = [bn.state()]
+    if down_bn is not None:
+        res_a, res_b = down_bn.eval_scale_shift(C)
+        states.append(down_bn.state())
+    return E.bn_epilogue(y, a, b, relu=True, residual=shortcut, res_a=res_a,
+                         res_b=res_b, cast=dtype if cast else None,
+                         keep=keep), states
 
 
 class Conv2Plus1D(nn.Module):
@@ -188,11 +229,10 @@ class Conv2Plus1D(nn.Module):
     def forward(self, x: Tensor, stride: Tuple[int, int, int], *,
                 train: bool, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
         st, sh, sw = stride
-        y, s = _bn(self.bn_mid, self.spatial(x, (1, sh, sw), dtype,
-                                             pad=not train), train,
-                   relu=True)
+        (y, _), s = _epilogue(self.bn_mid, self.spatial(
+            x, (1, sh, sw), dtype, pad=not train), train, dtype)
         return (self.temporal(y, (st, 1, 1), dtype, pad=not train),
-                {"bn_mid": s})
+                {"bn_mid": s[0]})
 
 
 class Block(nn.Module):
@@ -205,19 +245,34 @@ class Block(nn.Module):
         self.bn1, self.bn2 = bn1, bn2
         self.down, self.down_bn = down, down_bn
 
-    def forward(self, x: Tensor, stride: Tuple[int, int, int], *,
-                train: bool, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
-        y, s1 = self.conv1(x, stride, train=train, dtype=dtype)
-        y, b1 = _bn(self.bn1, y, train, relu=True)
+    def forward(self, x: Act, stride: Tuple[int, int, int], *, train: bool,
+                dtype: torch.dtype, cast: bool, keep: bool
+                ) -> Tuple[Act, Dict]:
+        """The block on ``x`` (B, T, H, W, In) as the epilogue before gives
+        it (:func:`_reads` of this block) -> (its output as ``cast`` and
+        ``keep`` ask: what the layer after reads of it; its new state)."""
+        low, full = x
+        y, s1 = self.conv1(low, stride, train=train, dtype=dtype)
+        (y, _), b1 = _epilogue(self.bn1, y, train, dtype)
         y, s2 = self.conv2(y, (1, 1, 1), train=train, dtype=dtype)
-        y, b2 = _bn(self.bn2, y, train)
-        state = {"conv1": s1, "conv2": s2, "bn1": b1, "bn2": b2}
-        sc = x
+        state = {"conv1": s1, "conv2": s2, "bn1": b1[0]}
+        sc = full
         if self.down is not None:
-            sc, state["down_bn"] = _bn(
-                self.down_bn, self.down(x, stride, dtype, pad=not train),
-                train)
-        return torch.relu(y + sc), state
+            sc = self.down(low, stride, dtype, pad=not train)
+        out, b2 = _epilogue(self.bn2, y, train, dtype, shortcut=sc,
+                            down_bn=self.down_bn, cast=cast, keep=keep)
+        state["bn2"] = b2[0]
+        if self.down is not None:
+            state["down_bn"] = b2[1]
+        return out, state
+
+
+def _reads(nxt: Optional[Block]) -> Dict[str, bool]:
+    """What reads an epilogue's output when ``nxt`` is the block after it
+    (None: the trunk's pooling): the block's convs read it in the compute
+    dtype (``cast``), its identity shortcut and the pooling in float32
+    (``keep``)."""
+    return {"cast": nxt is not None, "keep": nxt is None or nxt.down is None}
 
 
 class VideoResNet(nn.Module):
@@ -235,21 +290,24 @@ class VideoResNet(nn.Module):
         """(B, T, H, W, 3) float clips -> ((B, ceil(T / 8), H', W', 512)
         float32, new state)."""
         convs["trunks"] += 1
-        x, sbn = _bn(self.stem_bn, self.stem_s(clips, (1, 2, 2), dtype,
-                                               pad=not train),
-                     train, relu=True)
-        x, sbn2 = _bn(self.stem_bn2, self.stem_t(x, (1, 1, 1), dtype,
-                                                 pad=not train),
-                      train, relu=True)
-        state = {"stem_bn": sbn, "stem_bn2": sbn2, "stages": []}
-        for si, blocks in enumerate(self.stages):
+        pad = not train
+        # the block after each epilogue that ends the stem or a block
+        after = iter([b for s in self.stages for b in s] + [None])
+        (x, _), sbn = _epilogue(self.stem_bn, self.stem_s(
+            clips, (1, 2, 2), dtype, pad=pad), train, dtype)
+        x, sbn2 = _epilogue(self.stem_bn2, self.stem_t(
+            x, (1, 1, 1), dtype, pad=pad), train, dtype,
+            **_reads(next(after)))
+        state = {"stem_bn": sbn[0], "stem_bn2": sbn2[0], "stages": []}
+        for si, stage in enumerate(self.stages):
             stage_state = []
-            for bi, block in enumerate(blocks):
+            for bi, block in enumerate(stage):
                 stride = (2, 2, 2) if (bi == 0 and si > 0) else (1, 1, 1)
-                x, bs = block(x, stride, train=train, dtype=dtype)
+                x, bs = block(x, stride, train=train, dtype=dtype,
+                              **_reads(next(after)))
                 stage_state.append(bs)
             state["stages"].append(stage_state)
-        return x, state
+        return x[1], state
 
     def _head(self, feats: Tensor, dtype: torch.dtype) -> Tensor:
         return feats if self.fc is None else self.fc(feats, dtype)

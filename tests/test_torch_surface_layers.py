@@ -6,9 +6,10 @@ against the JAX package on the CPU, f32:
 * ``layers.maxpool2d(stride=)``: overlapping windows (window 3, stride 2;
   window 2, stride 1), a stride above the window, and the stride-=-window
   crop path, forward and gradient within 1e-6;
-* ``layers.BatchNorm.eval_all`` of an ``x`` up to 7 channels wider than
-  the batchnorm (a conv padded to a multiple of 8): its own channels bit
-  for bit as unpadded, the rest exactly 0;
+* ``layers.BatchNorm.eval_scale_shift`` for up to 7 channels more than
+  the batchnorm's (a conv padded to a multiple of 8), through the eval
+  epilogue's plain path: its own channels bit for bit as unpadded, the
+  rest exactly 0;
 * ``layers.lstm_dims``, ``lstm_zero_state`` and ``lstm_scan``'s dropout
   (rate 0 is JAX's scan within 1e-6; with a generator, dropout between the
   layers as ``lstm_step`` draws it: JAX's threefry masks are not
@@ -30,6 +31,7 @@ from mmqg_tpu.models import frontends as JF
 from mmqg_tpu.models import layers as JL
 from mmqg_tpu_torch.models import frontends as F
 from mmqg_tpu_torch.models import layers as L
+from mmqg_tpu_torch.ops.bn_epilogue import bn_epilogue_plain
 
 torch.set_num_threads(1)
 TOL = 1e-6
@@ -115,13 +117,16 @@ def test_batchnorm_eval_all_zeroes_the_channels_padded_past_it():
             extra = torch.from_numpy(rng.randn(2, 3, 4, pad)).to(dtype)
             wide = torch.cat([x, extra], dim=-1)
             for relu in (False, True):
-                got = bn.eval_all(wide, relu=relu)
+                _, got = bn_epilogue_plain(
+                    wide, *bn.eval_scale_shift(C + pad), relu=relu)
                 assert got.dtype == dtype and got.shape == wide.shape
-                assert torch.equal(got[..., :C], bn.eval_all(x, relu=relu))
+                _, own = bn_epilogue_plain(x, *bn.eval_scale_shift(C),
+                                           relu=relu)
+                assert torch.equal(got[..., :C], own)
                 assert torch.equal(got[..., C:], torch.zeros_like(extra))
     for width in (C - 1, C + 8):
         with pytest.raises(ValueError, match="channels"):
-            bn.eval_all(torch.zeros(2, width))
+            bn.eval_scale_shift(width)
 
 
 def test_lstm_dims_and_zero_state_match_jax():

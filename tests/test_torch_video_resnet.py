@@ -33,6 +33,7 @@ from mmqg_tpu.models import video_resnet as JR
 from mmqg_tpu_torch.compat.from_torchvision import (
     import_video_resnet, load_pretrained_video_resnet)
 from mmqg_tpu_torch.models import video_resnet as R
+from mmqg_tpu_torch.ops import bn_epilogue as E
 from mmqg_tpu_torch.optim import tree_leaves
 from tests.torch_port_fixtures import jax_resnet_f64, random_stats
 
@@ -115,8 +116,9 @@ def test_train_layer_by_layer_matches_jax(nets):
             stride = (2, 2, 2) if (bi == 0 and si > 0) else (1, 1, 1)
             y, ys = JR._block(P["stages"][si][bi], S["stages"][si][bi], x,
                               stride, train=True, dtype=jnp.float32)
-            g, gs = block(torch.tensor(np.asarray(x)), stride, train=True,
-                          dtype=torch.float32)
+            xt = torch.tensor(np.asarray(x))
+            (_, g), gs = block((xt, xt), stride, train=True,
+                               dtype=torch.float32, cast=False, keep=True)
             _close(g.numpy(), y, EVAL_TOL, f"block {si}.{bi}")
             leaves = jax.tree.leaves(ys)
             assert len(leaves) == len(tree_leaves(gs))
@@ -564,3 +566,60 @@ def test_a_train_trunk_after_an_inference_one_keeps_the_published_widths(
     assert len(g0) == len(g1) and all(torch.equal(a, b)
                                       for a, b in zip(g0, g1))
     assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["inference", "train"])
+def test_epilogues_off_the_card_launch_no_kernel(inference_trees, train,
+                                                 monkeypatch):
+    """34 epilogues an inference trunk (two in the stem, four a block),
+    each one call of the epilogue op, which on CPU tensors runs its plain
+    path and counts no launch; a training trunk never calls it (its
+    batchnorms take batch statistics under autograd)."""
+    trees, clips = inference_trees
+    _counters(monkeypatch)
+    calls = []
+    op = E.bn_epilogue
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return op(*args, **kw)
+
+    monkeypatch.setattr(op, "launches", 0)
+    monkeypatch.setattr(E, "bn_epilogue", counting)
+    m = _model(trees, "published", torch.float32)
+    m.temporal(_clips(clips, torch.float32), train=train,
+               dtype=torch.bfloat16)
+    assert len(calls) == (0 if train else 34)
+    assert op.launches == 0
+
+
+def test_an_inference_trunk_keeps_float32_only_where_it_is_read(
+        inference_trees, monkeypatch):
+    """Each epilogue writes the next conv's bf16 input and keeps the
+    float32 value only for an identity shortcut or the pooling: the stem
+    and each stage's first block feed an identity shortcut, each stage's
+    second block a ``down`` block's convs (bf16 alone), the last one the
+    pooling (float32 alone)."""
+    trees, clips = inference_trees
+    seen = []
+    plain = E.bn_epilogue_plain
+
+    def recording(x, a, b, *, relu, residual, res_a, res_b, cast, keep):
+        kind = ("none" if residual is None else
+                "identity" if res_a is None else "down")
+        seen.append((kind, relu, cast, keep))
+        return plain(x, a, b, relu=relu, residual=residual, res_a=res_a,
+                     res_b=res_b, cast=cast, keep=keep)
+
+    monkeypatch.setattr(E, "bn_epilogue_plain", recording)
+    m = _model(trees, "published", torch.float32)
+    m.temporal(_clips(clips, torch.float32), dtype=torch.bfloat16)
+    bf16 = torch.bfloat16
+    mid = [("none", True, bf16, False)] * 3
+    want = [("none", True, bf16, False), ("none", True, bf16, True)]
+    for stage in range(4):
+        want += mid + [("identity" if stage == 0 else "down", True, bf16,
+                        True)]
+        want += mid + [("identity", True, None if stage == 3 else bf16,
+                        stage == 3)]
+    assert seen == want
