@@ -251,6 +251,7 @@ from mmqg_tpu_torch.models import frontends
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models import video_resnet as VR
+from mmqg_tpu_torch.models import video_swin as VS
 from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops import _build
 from mmqg_tpu_torch.ops import bn_epilogue as BNE
@@ -548,10 +549,19 @@ def phase_k1(card: str) -> dict:
 # L - 3 (not a multiple of the kernel's 16-position chunk)
 K2_CASES = ((32, "random"), (128, "random"), (1, "random"), (33, "random"),
             (32, "one"), (33, "full"), (33, "ragged"))
+# the Swin-B cell's shapes: a 1024-wide video memory padded to 101 steps
+# whose lengths stop at 51 (one step per 2 of <= 101 frames), beside the
+# audio's 101; the serving batch (timed), a ragged batch tile, the beam's
+# 128 rows and a lone row
+K2_SWIN_HV, K2_SWIN_STEPS = 1024, 51
+K2_SWIN_CASES = ((32, "random"), (33, "full"), (33, "ragged"),
+                 (128, "random"), (1, "one"))
 
 
-def _k2_case(rng, B, dtype, dev, lengths="random"):
-    Dq, Lt, La, Ht, Hv, Ha = 812, 283, 101, 512, 512, 128
+def _k2_case(rng, B, dtype, dev, lengths="random", Hv=512, Lv=101):
+    """One K2 call against the plain version; the video memory ``Hv``
+    wide with lengths up to ``Lv`` of its 101 steps."""
+    Dq, Lt, La, Ht, Ha = 812, 283, 101, 512, 128
 
     def t(a, dt=dtype):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
@@ -563,7 +573,7 @@ def _k2_case(rng, B, dtype, dev, lengths="random"):
                               else np.full(B, {"one": 1, "full": L,
                                                "ragged": L - 3}[lengths])
                               ).astype(np.int32)).to(dev)
-            for L in (Lt, La, La)]
+            for L in (Lt, Lv, La)]
     args = (w_t, b, q, *mems, *lens)
     before = trimodal_attention.launches
     got = trimodal_attention(*args)
@@ -586,21 +596,25 @@ def _k2_case(rng, B, dtype, dev, lengths="random"):
 
 
 def phase_k2(card: str) -> dict:
-    """The kernel against the plain version at every K2_CASES entry, f32
-    and bf16, one launch a call; at B=32 and 128 with random lengths the
-    kernel timed beside the plain version: its device time
+    """The kernel against the plain version at every K2_CASES entry and,
+    with the Swin-B cell's 1024-wide video memory, every K2_SWIN_CASES
+    entry, f32 and bf16, one launch a call; at B=32 and 128 with random
+    lengths the kernel timed beside the plain version: its device time
     (torch.profiler), and the wrapper's calls back to back (CUDA events;
     the host sets that pace)."""
     rng = np.random.RandomState(SEED + 1)
     dev = torch.device("cuda")
     summary, failures = {}, []
+    cases = ([(B, n, 512, 101) for B, n in K2_CASES]
+             + [(B, n, K2_SWIN_HV, K2_SWIN_STEPS) for B, n in K2_SWIN_CASES])
     for dtype in (torch.float32, torch.bfloat16):
-        for B, lengths in K2_CASES:
-            err, launched, args, bnd = _k2_case(rng, B, dtype, dev, lengths)
+        for B, lengths, Hv, Lv in cases:
+            err, launched, args, bnd = _k2_case(rng, B, dtype, dev, lengths,
+                                                Hv, Lv)
             line = (f"K2 trimodal_attention B={B} Dq=812 L=283/101/101 "
-                    f"lengths {lengths} {str(dtype)[6:]}: launches "
-                    f"{launched}; max|d|={err:.3e} (tol "
-                    f"{K2_TOL[dtype]:.0e})")
+                    f"Hv={Hv} video lengths <= {Lv} lengths {lengths} "
+                    f"{str(dtype)[6:]}: launches {launched}; "
+                    f"max|d|={err:.3e} (tol {K2_TOL[dtype]:.0e})")
             if lengths == "random" and B in (32, 128):
                 def call():
                     return trimodal_attention(*args)
@@ -612,14 +626,16 @@ def phase_k2(card: str) -> dict:
                          f"(host-paced) {call_ms:.4f} ms; plain "
                          f"{plain_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
                          f"({bnd['bound_by']}; no library call computes it)")
-                if dtype == torch.bfloat16 and B == 32:
-                    summary = {"max_abs_err": err, "ms": ms,
-                               "plain_ms": plain_ms, **bnd,
-                               "library_ms": None, "call_ms": call_ms}
+                if dtype == torch.bfloat16 and B == 32 and Hv == 512:
+                    summary.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   **bnd, library_ms=None, call_ms=call_ms)
+                elif dtype == torch.bfloat16 and B == 32:
+                    summary["swin_hv1024"] = {"max_abs_err": err, "ms": ms,
+                                              "plain_ms": plain_ms, **bnd}
             log(f"{line} [{card}]")
             if not err <= K2_TOL[dtype] or launched != 1:
-                failures.append(f"B={B} {lengths} {dtype}: max|d| {err} "
-                                f"launches {launched}")
+                failures.append(f"B={B} Hv={Hv} {lengths} {dtype}: max|d| "
+                                f"{err} launches {launched}")
     if failures:
         raise AssertionError(f"K2 kernel and plain disagree: {failures}")
     return summary
@@ -2712,9 +2728,16 @@ def phase_serve(card: str, model, video, root) -> None:
 CONFIG_CASES = (("trimodal", "attn", "resnet"),
                 ("text_video", "non_attn", "conv_lstm"),
                 ("text", "attn", "conv_lstm"))
+# the Video Swin-B configuration (the benchmark's trimodal_attn_swin3d_b):
+# swin3d_b at torchvision's widths with its 1024-wide memory over frames of
+# 224 x 224, serving only, so it stays out of the phase's training and
+# card vs CPU checks
+SWIN_CASE = ("trimodal", "attn", "swin3d")
 CONFIG_STRATEGIES = {CONFIG_CASES[0]: ("greedy", "beam"),
                      CONFIG_CASES[1]: ("greedy", "sampling", "beam"),
-                     CONFIG_CASES[2]: ("greedy",)}
+                     CONFIG_CASES[2]: ("greedy",),
+                     SWIN_CASE: ("greedy", "beam")}
+SWIN_FRAME = 224
 RESNET_TRAIN_B = 16
 NON_ATTN_TRAIN_B = 32
 # the batchnorm epilogue's launches in one inference trunk (two in the stem,
@@ -2751,8 +2774,11 @@ def config_model(case):
     flagship's widths, random weights from SEED (made once: R(2+1)D-18's
     31M weights take seconds of the host's random draws)."""
     mode, dec, venc = case
+    swin = (dict(video_hidden_dim=qg_model.SWIN_WIDTH, frame_size=SWIN_FRAME,
+                 vid_mean=VS.MEAN, vid_std=VS.STD)
+            if venc == "swin3d" else {})
     mc = ModelConfig(n_vocab=N_VOCAB, mode=mode, decoder=dec,
-                     video_encoder=venc)
+                     video_encoder=venc, **swin)
     params, state = init_params(mc, SEED)
     return (mc, params, state) + synthetic_vocab()
 
@@ -2811,6 +2837,7 @@ def _config_serving(card: str, case, req) -> dict:
             pipe.generate(*req, strategy="beam", beam_size=BEAM_SIZE)
         _reset_launches()
         trunks = VR.convs["trunks"]
+        swin_before = dict(VS.windows)
         with mock.patch.object(decoder_module, "trimodal_attention",
                                counting):
             questions = pipe.generate(*req, strategy=strategy,
@@ -2822,6 +2849,8 @@ def _config_serving(card: str, case, req) -> dict:
         epilogues[strategy] = check_epilogue_launches(
             f"configs: {name} {strategy} generate()", mc,
             VR.convs["trunks"] - trunks)
+        check_swin_trunks(f"configs: {name} {strategy} generate()", mc,
+                          swin_before)
         rows = N_REQUESTS * (BEAM_SIZE if strategy == "beam" else 1)
         if k2_rows and set(k2_rows) != {rows}:
             raise AssertionError(f"{name} {strategy}: K2 rows {k2_rows}")
@@ -2861,8 +2890,34 @@ def _config_serving(card: str, case, req) -> dict:
             + ("not measured" if busy is None else f"{busy:.2f} ms")
             + f" (wall {wall_ms:.2f} ms, one profiled call); encode peak "
             f"memory {peak:.0f} MB (torch.cuda.max_memory_allocated) [{card}]")
+    elif mc.video_encoder == "swin3d":
+        host = pipe._pack(*req)
+        batch = pipe._to_device(host)
+        with torch.no_grad():
+            _, peak = _peak_mb(lambda: DEC.encode(
+                pipe.model, mc, batch, dtype=torch.bfloat16, **caps))
+        out["encode_peak_mb"] = peak
+        log(f"configs: {name} Swin-B encode of {N_REQUESTS} clips at "
+            f"{mc.frame_size} px, frames bucket {caps['frames_cap']}: peak "
+            f"memory {peak:.0f} MB (torch.cuda.max_memory_allocated) "
+            f"[{card}]")
     out["model"], out["pipe"] = model, pipe
     return out
+
+
+def check_swin_trunks(what: str, mc, before: dict) -> None:
+    """One Swin-B trunk a generate() of the swin3d configuration, its 24
+    window attentions each over at least one window holding a live token;
+    no trunk elsewhere."""
+    got = {k: VS.windows[k] - before[k] for k in before}
+    swin = mc.video_encoder == "swin3d" and mc.mode != "text"
+    want = {"trunks": 1, "attn_calls": 24} if swin else {"trunks": 0,
+                                                         "attn_calls": 0}
+    log(f"{what}: video_swin.windows moved by {got} (want {want})")
+    if ({k: got[k] for k in want} != want
+            or (swin and not 0 < got["live_windows"] <= got["windows"])):
+        raise AssertionError(f"{what}: video_swin.windows {got}, want "
+                             f"{want}")
 
 
 def _resnet_serves(mc) -> bool:
@@ -3289,14 +3344,17 @@ def _config_card_vs_cpu(case) -> None:
 def phase_configs(card: str) -> dict:
     """The configurations beside the flagship at full width: serving of
     trimodal + attention + R(2+1)D (greedy, beam), text_video +
-    non-attention + conv-LSTM (greedy, sampling, beam) and text +
-    attention (greedy) with their launches; the resize path; R(2+1)D
+    non-attention + conv-LSTM (greedy, sampling, beam), text +
+    attention (greedy) and trimodal + attention + Swin-B at 224 px
+    (greedy, beam) with their launches; the resize path; R(2+1)D
     training with remat_video off and on, a non-attention step and
     gradient accumulation; each configuration card vs CPU in f32."""
     req = requests(ModelConfig(n_vocab=N_VOCAB), N_REQUESTS, SEED + 2)
     serving = {}
     for case in CONFIG_CASES:
         serving[case] = _config_serving(card, case, req)
+    serving[SWIN_CASE] = _config_serving(card, SWIN_CASE, requests(
+        config_model(SWIN_CASE)[0], N_REQUESTS, SEED + 2))
     resnet = serving[CONFIG_CASES[0]]
     resize = _resize_path(card, resnet)
     for s in serving.values():      # free the pipelines' device memory

@@ -13,6 +13,8 @@ as it is -- float32, bit for bit -- onto ``device``:
   params["video_enc"]["lstm"]["layers"][0]
     or R(2+1)D-18 (``video_resnet.init``'s tree: stem_s, stem_t, stem_bn,
     stem_bn2, stages[4][2], optional fc; its state the batchnorms')
+    or the Video Swin Transformer (``video_swin.init_numpy``'s tree:
+    patch, patch_norm, stages, merges, norm; no state)
   params["audio_enc"]["convs"][i], ["fc1"|"fc2"|"fc3"]   w (In, Out), b
   params["decoder"]["attn"]                       AttnParams (or its dict)
   params["decoder"]["lstm"], params["decoder"]["out"]
@@ -37,7 +39,7 @@ import torch
 
 from mmqg_tpu_torch.models import layers as L
 from mmqg_tpu_torch.models.audio_encoder import AudioEncoder
-from mmqg_tpu_torch.models import video_resnet
+from mmqg_tpu_torch.models import video_resnet, video_swin
 from mmqg_tpu_torch.models.decoder import Decoder, NonAttnDecoder
 from mmqg_tpu_torch.models import qg_model
 from mmqg_tpu_torch.models.qg_model import QGModel
@@ -76,6 +78,8 @@ def params_from_numpy(params: Dict[str, Any], model_state: Dict[str, Any],
     vp = params.get("video_enc")
     if vp is not None and "stem_s" in vp:
         video = video_resnet.build(vp, model_state["video_enc"], t)
+    elif vp is not None and "patch" in vp:
+        video = video_swin.build(vp, t)
     elif vp is not None:
         video = VideoEncoder(
             [conv(c) for c in vp["convs"]],

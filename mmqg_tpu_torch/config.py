@@ -59,7 +59,7 @@ class Config:
     video_hidden_dim: int = 512
     flatten_dim: int = 1000
     frame_size: int = 112
-    video_encoder: str = "conv_lstm"  # "conv_lstm" | "resnet"
+    video_encoder: str = "conv_lstm"  # "conv_lstm" | "resnet" | "swin3d"
     remat_video: bool = False
 
     # ---- text encoder ----

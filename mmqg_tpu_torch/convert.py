@@ -11,6 +11,11 @@ The reference downloaded both files when it built its model:
   pretrained=True)``): ``r2plus1d_18-91a641e6.pth``, sha256 prefix
   ``91a641e6``, from
   https://download.pytorch.org/models/r2plus1d_18-91a641e6.pth
+* the Video Swin Transformer, base, on Kinetics-400
+  (``torchvision.models.video.swin3d_b(weights="KINETICS400_V1")``):
+  ``swin3d_b_1k-24f7c7c6.pth``, sha256 prefix ``24f7c7c6``, from
+  https://download.pytorch.org/models/swin3d_b_1k-24f7c7c6.pth (the
+  port's third video encoder; the reference repository does not load it)
 
 Each file's sha256 prefix is checked (``--no-verify-hash`` skips it), its
 weights go through ``models.audio_encoder.load_vggish_state_dict`` and
@@ -23,7 +28,11 @@ checkpoint ``<alias>`` that ``Trainer.resume(alias)`` (``train --resume
         --vggish vggish-10086976.pth --resnet r2plus1d_18-91a641e6.pth \\
         --alias pretrained [--device cpu]
 
-``--resnet`` fits only a config with ``video_encoder: "resnet"``.
+``--resnet`` fits only a config with ``video_encoder: "resnet"``, and
+``--swin3d <file>`` only one with ``video_encoder: "swin3d"`` whose
+``vid_mean`` and ``vid_std`` are the weights' own (ImageNet's, as
+torchvision's transforms for them normalise); a swin3d_b state dict of
+any other shape is refused, naming the tensor.
 ``--dry-run`` rehearses the whole path with no download: it writes a tiny
 corpus and stand-in ``.pth`` files of seeded random values under the
 released key names, converts them and restores the checkpoint.
@@ -42,7 +51,8 @@ import torch
 
 from mmqg_tpu_torch import checkpoint as ckpt
 from mmqg_tpu_torch.compat.from_jax import train_state_to_numpy
-from mmqg_tpu_torch.compat.from_torchvision import load_pretrained_video_resnet
+from mmqg_tpu_torch.compat.from_torchvision import (
+    import_video_swin, load_pretrained_video_resnet)
 from mmqg_tpu_torch.config import Config
 from mmqg_tpu_torch.data.dataset import QGDataset
 from mmqg_tpu_torch.data.glove import ingest_glove
@@ -52,7 +62,7 @@ from mmqg_tpu_torch.models.audio_encoder import BLOCKS as AUDIO_BLOCKS
 from mmqg_tpu_torch.models.audio_encoder import (_VGGISH_CONV_KEYS,
                                                  _VGGISH_FC_KEYS,
                                                  load_vggish_state_dict)
-from mmqg_tpu_torch.models import video_resnet
+from mmqg_tpu_torch.models import video_resnet, video_swin
 from mmqg_tpu_torch.models.video_encoder import flatten_dim_for
 from mmqg_tpu_torch.optim import make_optimizer, tree_leaves, tree_map
 from mmqg_tpu_torch.train import Trainer, init_train_state
@@ -61,6 +71,7 @@ from mmqg_tpu_torch.utils.device import resolve_device
 PINNED = {
     "vggish": ("vggish-10086976.pth", "10086976"),
     "resnet": ("r2plus1d_18-91a641e6.pth", "91a641e6"),
+    "swin3d": ("swin3d_b_1k-24f7c7c6.pth", "24f7c7c6"),
 }
 
 
@@ -95,7 +106,7 @@ def _check_resnet_shapes(sd: Dict[str, np.ndarray]) -> None:
 
 def convert(config_path: Path, vggish: Optional[Path], resnet: Optional[Path],
             alias: str, verify_hash: bool = True, mode: str = "trimodal",
-            device="cuda") -> Path:
+            device="cuda", swin3d: Optional[Path] = None) -> Path:
     """Write ``<checkpoint_dir>/<alias>.msgpack`` from the released files
     given; returns its path. The train state is built on ``device`` (the
     card unless the caller asks for the CPU)."""
@@ -106,16 +117,38 @@ def convert(config_path: Path, vggish: Optional[Path], resnet: Optional[Path],
             "--resnet given but the config's video_encoder is "
             f"{config.video_encoder!r}; the R(2+1)D weights only fit "
             "video_encoder: 'resnet' (reference model/encoder.py:24)")
-    if vggish is None and resnet is None:
-        raise SystemExit("nothing to convert: pass --vggish and/or --resnet")
+    if swin3d is not None and config.video_encoder != "swin3d":
+        raise SystemExit(
+            "--swin3d given but the config's video_encoder is "
+            f"{config.video_encoder!r}; the swin3d_b weights only fit "
+            "video_encoder: 'swin3d'")
+    if swin3d is not None and not (
+            np.allclose(config.vid_mean, video_swin.MEAN)
+            and np.allclose(config.vid_std, video_swin.STD)):
+        raise SystemExit(
+            f"--swin3d given but the config normalises frames with vid_mean "
+            f"{tuple(config.vid_mean)} and vid_std {tuple(config.vid_std)}; "
+            f"the swin3d_b weights expect mean {video_swin.MEAN} and std "
+            f"{video_swin.STD} (torchvision's "
+            "Swin3D_B_Weights.KINETICS400_V1 transforms)")
+    if vggish is None and resnet is None and swin3d is None:
+        raise SystemExit("nothing to convert: pass --vggish, --resnet "
+                         "and/or --swin3d")
     if verify_hash:
-        for kind, path in (("vggish", vggish), ("resnet", resnet)):
+        for kind, path in (("vggish", vggish), ("resnet", resnet),
+                           ("swin3d", swin3d)):
             if path is not None:
                 _check_sha(path, kind)
     resnet_sd = None
     if resnet is not None:
         resnet_sd = _load_state_dict(resnet)
         _check_resnet_shapes(resnet_sd)
+    swin_enc = None
+    if swin3d is not None:
+        try:
+            swin_enc = import_video_swin(_load_state_dict(swin3d))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
     train_ds = QGDataset(config, config.train_file, load_media=False)
     emb = np.load(config.weights_matrix_file).astype(np.float32)
@@ -137,6 +170,10 @@ def convert(config_path: Path, vggish: Optional[Path], resnet: Optional[Path],
     if resnet_sd is not None:
         params, state = load_pretrained_video_resnet(params, state, resnet_sd)
         imported.append("r2plus1d_18")
+    if swin_enc is not None:
+        params = dict(params, video_enc=swin_enc[0])
+        state = dict(state, video_enc=swin_enc[1])
+        imported.append("swin3d_b")
     tree["params"], tree["model_state"] = params, state
 
     out = ckpt.save_checkpoint(
@@ -310,6 +347,9 @@ def main(argv=None) -> None:
     ap.add_argument("--resnet", type=Path,
                     help="released r2plus1d_18-91a641e6.pth "
                          "(video_encoder: resnet configs only)")
+    ap.add_argument("--swin3d", type=Path,
+                    help="released swin3d_b_1k-24f7c7c6.pth "
+                         "(video_encoder: swin3d configs only)")
     ap.add_argument("--alias", default="pretrained",
                     help="checkpoint alias to write (default: pretrained)")
     ap.add_argument("--mode", default="trimodal", choices=qg_model.MODES,
@@ -333,7 +373,7 @@ def main(argv=None) -> None:
         ap.error("--config is required (or use --dry-run)")
     convert(args.config, args.vggish, args.resnet, args.alias,
             verify_hash=not args.no_verify_hash, mode=args.mode,
-            device=args.device)
+            device=args.device, swin3d=args.swin3d)
 
 
 if __name__ == "__main__":

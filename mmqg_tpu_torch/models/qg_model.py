@@ -8,10 +8,12 @@ training (``encode(train=True)``, ``loss_fn``):
                  (+ the VGGish audio encoder, the flagship)
   decoder        attn (tri-modal attention, K2 on the card) or non_attn
                  (one AV vector a step, no attention)
-  video_encoder  conv_lstm (the conv pyramid and an LSTM, K1/K4) or resnet
-                 (R(2+1)D-18 on cuDNN conv3d; ``frontends.prepare_frames``
-                 in, memories at a stride of 8 frames; spans
-                 ``video.prepare`` and ``video.trunk``)
+  video_encoder  conv_lstm (the conv pyramid and an LSTM, K1/K4), resnet
+                 (R(2+1)D-18 on cuDNN conv3d; memories at a stride of 8
+                 frames) or swin3d (the Video Swin Transformer,
+                 ``video_swin.py``, serving only; memories at a stride of
+                 2 frames); the last two take ``frontends.prepare_frames``
+                 in, in spans ``video.prepare`` and ``video.trunk``
   remat_video    recompute the video tower in the backward pass
 """
 
@@ -27,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from mmqg_tpu_torch.data.vocab import START_ID
 from mmqg_tpu_torch.models import frontends
 from mmqg_tpu_torch.models import layers as L
-from mmqg_tpu_torch.models import video_resnet
+from mmqg_tpu_torch.models import video_resnet, video_swin
 from mmqg_tpu_torch.models.audio_encoder import BLOCKS as AUDIO_BLOCKS
 from mmqg_tpu_torch.models.audio_encoder import AudioEncoder
 from mmqg_tpu_torch.models.decoder import Decoder, Memories, NonAttnDecoder
@@ -37,6 +39,7 @@ from mmqg_tpu_torch.models.text_encoder import TextEncoder
 from mmqg_tpu_torch.models.video_encoder import CHANNELS as VIDEO_CHANNELS
 from mmqg_tpu_torch.models.video_encoder import VideoEncoder
 from mmqg_tpu_torch.models.video_resnet import VideoResNet
+from mmqg_tpu_torch.models.video_swin import VideoSwin
 from mmqg_tpu_torch.optim import tree_map
 from mmqg_tpu_torch.parallel import model_axis
 from mmqg_tpu_torch.utils import profiling
@@ -45,7 +48,8 @@ Tensor = torch.Tensor
 
 MODES = ("text", "text_video", "trimodal")
 DECODERS = ("attn", "non_attn")
-VIDEO_ENCODERS = ("conv_lstm", "resnet")
+VIDEO_ENCODERS = ("conv_lstm", "resnet", "swin3d")
+SWIN_WIDTH = 1024   # swin3d_b's output width, the memory's
 
 
 class ModelConfig(NamedTuple):
@@ -100,9 +104,9 @@ class ModelConfig(NamedTuple):
             raise ValueError("av_in_channels/av_kernel_sz/av_stride must stay"
                              " (3, 3, 1): the video conv pyramid is fixed")
         venc = getattr(config, "video_encoder", "conv_lstm")
-        if venc not in ("conv_lstm", "resnet"):
-            raise ValueError(f"video_encoder={venc!r}: must be 'conv_lstm' "
-                             "or 'resnet'")
+        if venc not in VIDEO_ENCODERS:
+            raise ValueError(f"video_encoder={venc!r}: must be one of "
+                             f"{VIDEO_ENCODERS}")
         if getattr(config, "param_dtype", "float32") != "float32":
             raise ValueError("param_dtype: only float32 parameters")
         return cls(
@@ -138,12 +142,13 @@ def init_params(mc: ModelConfig, seed: int = 0,
     layouts, numpy float32 leaves, from ``np.random.RandomState(seed)`` --
     the counterpart of ``qg_model.init`` without JAX, with the subtrees of
     ``mc``'s configuration: ``video_enc`` outside mode text (the conv
-    pyramid and LSTM, or R(2+1)D-18 with an ``fc`` head when
-    ``video_hidden_dim != 512``), ``audio_enc`` in trimodal, the attention
-    or the non-attention decoder. Xavier-uniform dense, attention and LSTM
-    weights with N(0, 1) biases, torch-default uniform convs, identity
-    batchnorm; the embedding is ``emb_weights`` or N(0, 1). The attention
-    weights are a dict of ``AttnParams``' fields."""
+    pyramid and LSTM, R(2+1)D-18 with an ``fc`` head when
+    ``video_hidden_dim != 512``, or torchvision's ``swin3d_b``, whose
+    1024-wide output the ``video_hidden_dim`` must be), ``audio_enc`` in
+    trimodal, the attention or the non-attention decoder. Xavier-uniform
+    dense, attention and LSTM weights with N(0, 1) biases, torch-default
+    uniform convs, identity batchnorm; the embedding is ``emb_weights`` or
+    N(0, 1). The attention weights are a dict of ``AttnParams``' fields."""
     check_supported(mc)
     rng = np.random.RandomState(seed)
 
@@ -178,6 +183,13 @@ def init_params(mc: ModelConfig, seed: int = 0,
         if mc.video_encoder == "resnet":
             params["video_enc"], state["video_enc"] = video_resnet.init_numpy(
                 rng, embed_dim=None if Hv == 512 else Hv)
+        elif mc.video_encoder == "swin3d":
+            if Hv != SWIN_WIDTH:
+                raise ValueError(
+                    f"video_encoder='swin3d' with video_hidden_dim={Hv}: the "
+                    f"memory is swin3d_b's {SWIN_WIDTH}-wide output")
+            params["video_enc"], state["video_enc"] = video_swin.init_numpy(
+                rng)
         else:
             channels = (3,) + VIDEO_CHANNELS
             params["video_enc"] = {
@@ -241,7 +253,8 @@ def check_supported(mc: ModelConfig, model: Optional["QGModel"] = None
             f"decoder={mc.decoder!r}, but the model's parameters hold the "
             f"{type(model.decoder).__name__}'s")
     if mc.mode != "text":
-        want = VideoResNet if mc.video_encoder == "resnet" else VideoEncoder
+        want = {"resnet": VideoResNet, "swin3d": VideoSwin}.get(
+            mc.video_encoder, VideoEncoder)
         if not isinstance(model.video_enc, want):
             raise ValueError(
                 f"mode={mc.mode!r} video_encoder={mc.video_encoder!r}, but "
@@ -297,7 +310,7 @@ def param_tree(model: QGModel) -> Dict:
     if isinstance(d, Decoder):
         tree["decoder"]["attn"] = {k: getattr(d.attn, k)
                                    for k in ATTN_FIELDS}
-    if isinstance(v, VideoResNet):
+    if isinstance(v, (VideoResNet, VideoSwin)):
         tree["video_enc"] = v.param_tree()
     elif v is not None:
         tree["video_enc"] = {"convs": convs(v.convs),
@@ -336,6 +349,18 @@ def set_process_group(model: QGModel, group) -> None:
             m.process_group = group
 
 
+def _clips(mc: ModelConfig, frames: Tensor, frames_len: Tensor) -> Tensor:
+    """The clips a 3-D trunk takes: normalised frames with those past each
+    row's length zeroed after the normalisation, since the trunk mixes
+    time (R(2+1)D's convs, Swin's patches of 2 frames)."""
+    prepared = frontends.prepare_frames(
+        frames, size=mc.frame_size, mean=mc.vid_mean, std=mc.vid_std,
+        normalize=mc.normalize_video)
+    live = (torch.arange(prepared.shape[1], device=prepared.device)[None, :]
+            < frames_len[:, None])
+    return prepared * live[:, :, None, None, None].to(prepared.dtype)
+
+
 def _video(model: QGModel, mc: ModelConfig, frames: Tensor,
            frames_len: Tensor, *, train: bool, dtype: torch.dtype
            ) -> Tuple[Tensor, Tensor, Dict]:
@@ -346,6 +371,18 @@ def _video(model: QGModel, mc: ModelConfig, frames: Tensor,
     run's batchnorm state is returned (the recomputation's is dropped, and
     none is written to the buffers)."""
     venc = model.video_enc
+    if mc.video_encoder == "swin3d":
+        if train:
+            raise NotImplementedError(
+                "video_encoder='swin3d' serves only: its training path "
+                "(stochastic depth 0.1 and the dropout draws) is not built")
+        with profiling.annotate("video.prepare"):
+            prepared = _clips(mc, frames, frames_len)
+        # one memory step per 2 frames; padded steps are masked keys
+        steps = torch.clamp(video_swin.temporal_out_len(frames_len), min=1)
+        with profiling.annotate("video.trunk"):
+            enc = venc.temporal(prepared, steps, dtype=dtype)
+        return enc, steps, {}
 
     def tower(fn, *args):
         if train and mc.remat_video:
@@ -353,15 +390,8 @@ def _video(model: QGModel, mc: ModelConfig, frames: Tensor,
         return fn(*args)
 
     if mc.video_encoder == "resnet":
-        # 3-D convs mix time: padded frames are zeroed after normalisation
         with profiling.annotate("video.prepare"):
-            prepared = frontends.prepare_frames(
-                frames, size=mc.frame_size, mean=mc.vid_mean,
-                std=mc.vid_std, normalize=mc.normalize_video)
-            live = (torch.arange(prepared.shape[1], device=prepared.device)
-                    [None, :] < frames_len[:, None])
-            prepared = prepared * live[:, :, None, None, None].to(
-                prepared.dtype)
+            prepared = _clips(mc, frames, frames_len)
         with profiling.annotate("video.trunk"):
             enc, state = tower(lambda x: venc.temporal(x, train=train,
                                                        dtype=dtype), prepared)
@@ -406,7 +436,8 @@ def encode(model: QGModel, mc: ModelConfig, batch: Dict[str, Tensor], *,
 
     ``train`` runs the trainable path: the text and video LSTMs through K4,
     text dropout from ``generator``, batchnorm over the valid frames (the
-    conv pyramid) or over every position (R(2+1)D).
+    conv pyramid) or over every position (R(2+1)D); ``swin3d`` has none
+    and raises NotImplementedError.
 
     Returns (memories, decoder initial state, new model_state): the new
     batchnorm running statistics, detached, when training, else the

@@ -259,11 +259,12 @@ DO_NOT_PORT = {
     },
 }
 
-# flags the port adds: --device (the entry points default to CUDA) and
-# the converter's --work-dir (where --dry-run writes its stand-ins)
+# flags the port adds: --device (the entry points default to CUDA), the
+# converter's --work-dir (where --dry-run writes its stand-ins) and its
+# --swin3d (torchvision's swin3d_b, a video encoder only the port has)
 PORT_ONLY_FLAGS = {"train": {"--device"}, "evaluate": {"--device"},
                    "serve": {"--device"},
-                   "convert": {"--device", "--work-dir"}}
+                   "convert": {"--device", "--work-dir", "--swin3d"}}
 
 
 def _merged(part: str) -> dict:

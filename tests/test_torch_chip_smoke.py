@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -156,6 +157,34 @@ def test_bound_is_the_larger_of_operations_and_bytes():
     assert b == {"bound_ms": 1000.0, "bound_by": "bytes"}
     assert chip_smoke.nbytes(torch.zeros(3, 4), torch.zeros(
         5, dtype=torch.int8)) == 53
+
+
+def test_swin_trunk_check_wants_one_trunk_of_24_attentions():
+    """The configs phase's Swin check: one trunk of 24 window attentions
+    over some live windows a generate() of the swin3d configuration, and
+    no trunk in any other."""
+    from unittest import mock
+
+    from mmqg_tpu_torch.models import video_swin as VS
+
+    swin = ModelConfig(n_vocab=50, video_encoder="swin3d",
+                       video_hidden_dim=1024, frame_size=224)
+    with mock.patch.dict(VS.windows):
+        before = dict(VS.windows)
+        chip_smoke.check_swin_trunks("rehearsal", ModelConfig(n_vocab=50),
+                                     before)
+        with pytest.raises(AssertionError, match="video_swin.windows"):
+            chip_smoke.check_swin_trunks("rehearsal", swin, before)
+        for key, n in (("trunks", 1), ("attn_calls", 24), ("windows", 9),
+                       ("live_windows", 4)):
+            VS.windows[key] += n
+        chip_smoke.check_swin_trunks("rehearsal", swin, before)
+        for mc in (ModelConfig(n_vocab=50), swin._replace(mode="text")):
+            with pytest.raises(AssertionError, match="video_swin.windows"):
+                chip_smoke.check_swin_trunks("rehearsal", mc, before)
+        VS.windows["live_windows"] -= 4
+        with pytest.raises(AssertionError, match="video_swin.windows"):
+            chip_smoke.check_swin_trunks("rehearsal", swin, before)
 
 
 def _tiny_train_model():
