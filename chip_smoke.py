@@ -256,6 +256,7 @@ from mmqg_tpu_torch.models.qg_model import ModelConfig, init_params
 from mmqg_tpu_torch.ops import _build
 from mmqg_tpu_torch.ops import bn_epilogue as BNE
 from mmqg_tpu_torch.ops import vggish as V
+from mmqg_tpu_torch.ops import window_attention as WA
 from mmqg_tpu_torch.ops.attention import (trimodal_attention,
                                           trimodal_attention_plain)
 from mmqg_tpu_torch.ops.lstm import lstm_seq, lstm_seq_plain
@@ -2838,6 +2839,7 @@ def _config_serving(card: str, case, req) -> dict:
         _reset_launches()
         trunks = VR.convs["trunks"]
         swin_before = dict(VS.windows)
+        wa_before = WA.window_attention.launches
         with mock.patch.object(decoder_module, "trimodal_attention",
                                counting):
             questions = pipe.generate(*req, strategy=strategy,
@@ -2851,6 +2853,8 @@ def _config_serving(card: str, case, req) -> dict:
             VR.convs["trunks"] - trunks)
         check_swin_trunks(f"configs: {name} {strategy} generate()", mc,
                           swin_before)
+        check_window_attention_launches(
+            f"configs: {name} {strategy} generate()", mc, wa_before)
         rows = N_REQUESTS * (BEAM_SIZE if strategy == "beam" else 1)
         if k2_rows and set(k2_rows) != {rows}:
             raise AssertionError(f"{name} {strategy}: K2 rows {k2_rows}")
@@ -2918,6 +2922,236 @@ def check_swin_trunks(what: str, mc, before: dict) -> None:
             or (swin and not 0 < got["live_windows"] <= got["windows"])):
         raise AssertionError(f"{what}: video_swin.windows {got}, want "
                              f"{want}")
+
+
+def check_window_attention_launches(what: str, mc, before: int) -> None:
+    """The window attention kernel's launches since ``before``: 24 a
+    generate() of the swin3d configuration (one trunk), none elsewhere."""
+    swin = mc.video_encoder == "swin3d" and mc.mode != "text"
+    got = WA.window_attention.launches - before
+    want = WIN_BLOCKS if swin else 0
+    log(f"{what}: window_attention launched {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{what}: window_attention launched {got}, "
+                             f"want {want}")
+
+
+# the window attention at the Swin cell's bucket: 32 clips of 101 frames
+# (51 temporal tokens) at 224 px; each stage's (C, heads, H = W, blocks)
+WIN_BLOCKS = 24
+WIN_CLIPS, WIN_FRAMES = 32, 101
+WIN_STAGES = ((128, 4, 56, 2), (256, 8, 28, 2), (512, 16, 14, 18),
+              (1024, 32, 7, 2))
+
+
+def _win_lives(gen) -> torch.Tensor:
+    """Ragged live temporal tokens of WIN_CLIPS clips of 20-101 frames,
+    one at the bucket's 101."""
+    frames = torch.randint(20, WIN_FRAMES + 1, (WIN_CLIPS,), generator=gen)
+    frames[0] = WIN_FRAMES
+    return VS.temporal_out_len(frames).cuda()
+
+
+def _win_inputs(stage, shifted, dtype, lives, gen):
+    """(qkv, table, rows, grid, win, shift, live windows) of one block."""
+    C, heads, side, _ = stage
+    T = int(VS.temporal_out_len(WIN_FRAMES))
+    size = (T, side, side)
+    win, shift = VS.window_and_shift(size, shifted)
+    grid = tuple(-(-n // w) for n, w in zip(size, win))
+    rows = VS.Rows(lives, T)
+    n_win = WIN_CLIPS * grid[0] * grid[1] * grid[2]
+    qkv = torch.randn((n_win, win[0] * win[1] * win[2], 3, heads, WA.HEAD),
+                      generator=gen, device="cuda").to(dtype)
+    table = torch.randn((WA.TABLE, heads), generator=gen, device="cuda")
+    live = rows.live_rows[shift[0]] * grid[1] * grid[2]
+    return qkv, table, rows, grid, win, shift, live
+
+
+def _live_queries(rows, grid, win, shift) -> torch.Tensor:
+    """(windows, N): True at each window token whose rolled temporal
+    position lies before its clip's live length."""
+    nt, nh, nw = grid
+    t = (torch.arange(nt)[:, None] * win[0] + torch.arange(win[0])
+         + shift[0]) % (nt * win[0])
+    live = t[None].to(rows.live.device) < rows.live[:, None, None]
+    return live[:, :, None].expand(-1, -1, nh * nw, -1).repeat_interleave(
+        win[1] * win[2], -1).reshape(-1, math.prod(win))
+
+
+def _ms_or_not(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.2f} ms"
+
+
+def _device_total_ms(fn, names, iters: int = 3):
+    """Device ms a call of ``fn()`` spends in kernels whose names contain
+    one of ``names`` (torch.profiler, summed over the call's launches), or
+    None where the profiler kept no such record (after many profiled
+    phases in one process it drops records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start
+                for e in prof.events() if e.device_type == DeviceType.CUDA
+                and any(n in e.name for n in names))
+    return total / iters / 1e3 if total else None
+
+
+def phase_window_attention(card: str) -> dict:
+    """The window attention kernel against its plain PyTorch version on
+    the card, at each Swin-B stage's (C, heads) over the cell's bucket
+    (B=32, 101 frames, ragged lives), unshifted and shifted, bf16 and
+    float32: the windows of padding alone exactly zero, the live tokens
+    within two bf16 steps (bf16) or 1e-5 (float32) of max |plain|; in
+    bf16 the kernel's time (CUDA events: one launch of milliseconds)
+    against its bound (the live windows' products at the bf16 peak, or
+    their q, k, v and out and the table at the memory rate), the plain
+    version's and, as the yardstick only, library_ms: the device time of
+    PyTorch's fused attention (cuDNN's) inside the plain version. Then
+    one bf16 Swin-B trunk over the bucket, with the kernel and with the
+    plain version: its time, launches and how far apart their outputs
+    lie."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    lives = _win_lives(gen)
+    rows_out, total = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                           "library_ms": 0.0}
+    for stage in WIN_STAGES:
+        for shifted in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                qkv, table, rows, grid, win, shift, live = _win_inputs(
+                    stage, shifted, dtype, lives, cgen)
+                args = (qkv, table, rows, grid, win, shift)
+                before = WA.window_attention.launches
+                with torch.no_grad():
+                    got = WA.window_attention(*args)
+                    want = WA.window_attention_plain(*args)
+                torch.cuda.synchronize()
+                if WA.window_attention.launches != before + 1:
+                    raise AssertionError("window_attention: not one launch")
+                dead = want.flatten(1).abs().amax(1) == 0
+                zeros = got.flatten(1).abs().amax(1) == 0
+                # at the live tokens: cuDNN's bf16 attention leaves a
+                # padded token whose live keys all lie in another region
+                # inexact, and no live token reads it
+                live_q = _live_queries(rows, grid, win, shift)
+                err = max_abs(got[live_q], want[live_q]) / float(
+                    want[live_q].abs().max())
+                tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+                name = (f"C {stage[0]} heads {stage[1]} {stage[2]}x"
+                        f"{stage[2]} {'shifted' if shifted else 'unshifted'}"
+                        f" {str(dtype).split('.')[-1]}")
+                if not torch.equal(dead, zeros) or not err <= tol:
+                    raise AssertionError(f"window_attention {name}: "
+                                         f"max|d| {err:.3g} of max|plain| "
+                                         f"(tol {tol:g}), zero windows "
+                                         f"{int(zeros.sum())} vs "
+                                         f"{int(dead.sum())}")
+                row = {"stage": list(stage), "shifted": shifted,
+                       "dtype": str(dtype).split(".")[-1],
+                       "windows": qkv.shape[0], "live_windows": live,
+                       "dead_windows": int(dead.sum()), "max_rel_err": err}
+                del got, want
+                if dtype == torch.bfloat16:
+                    N, C = qkv.shape[1], stage[0]
+                    ops = 2.0 * live * 2 * N * N * C
+                    moved = 2 * 4 * live * N * C + 4 * WA.TABLE * stage[1]
+                    with torch.no_grad():
+                        ms = cuda_ms(lambda: WA.window_attention(*args),
+                                     iters=10)
+                        plain_ms = cuda_ms(
+                            lambda: WA.window_attention_plain(*args),
+                            iters=3, warmup=1)
+                        lib_ms = _device_total_ms(
+                            lambda: WA.window_attention_plain(*args),
+                            ["sdpa", "flash", "fmha", "Attention"], iters=2)
+                    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               **bound(ops, moved, dtype))
+                    for k in total:   # half the stage's blocks shifted
+                        total[k] = (None if row[k] is None or total[k] is None
+                                    else total[k] + row[k] * stage[3] / 2)
+                    log(f"  window_attention {name}: max|d| {err:.2e} of "
+                        f"max|plain|, {row['dead_windows']} of "
+                        f"{row['windows']} windows padding alone; kernel "
+                        f"{ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                        f"({row['bound_by']}), plain {plain_ms:.2f} ms, "
+                        f"library {_ms_or_not(lib_ms)} [{card}]")
+                else:
+                    with torch.no_grad():
+                        row["ms"] = cuda_ms(
+                            lambda: WA.window_attention(*args), iters=1,
+                            warmup=1)
+                    log(f"  window_attention {name}: max|d| {err:.2e} of "
+                        f"max|plain|; kernel {row['ms']:.2f} ms [{card}]")
+                rows_out.append(row)
+                del qkv, table, args
+                torch.cuda.empty_cache()
+    log(f"window_attention: a trunk's {WIN_BLOCKS} blocks at B={WIN_CLIPS}, "
+        f"{WIN_FRAMES} frames (depths 2, 2, 18, 2): kernel "
+        f"{total['ms']:.2f} ms, bound {total['bound_ms']:.2f} ms, plain "
+        f"{total['plain_ms']:.2f} ms, library "
+        f"{_ms_or_not(total['library_ms'])} [{card}]")
+    trunk = _win_trunk(card, lives)
+    return {"calls": rows_out, "trunk_blocks": total, "trunk": trunk}
+
+
+def _win_trunk(card: str, lives) -> dict:
+    """One bf16 swin3d_b trunk at random weights over the bucket's clips,
+    with the kernel and with the plain version in the kernel's place:
+    CUDA events over each (the trunk is device-bound), launches, the
+    kernel trunk's top device ops (profiler) and how far apart the two
+    trunks' live memory steps lie."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, _ = VS.init_numpy(np.random.RandomState(SEED))
+    model = VS.build(params, lambda a: torch.tensor(a, device="cuda"))
+    clips = torch.randn((WIN_CLIPS, WIN_FRAMES, 224, 224, 3),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED + 12), device="cuda")
+    out = {}
+    with torch.no_grad():
+        for route in ("kernel", "plain"):
+            with (mock.patch.object(VS, "window_attention",
+                                    WA.window_attention_plain)
+                  if route == "plain" else contextlib.nullcontext()):
+                out[route] = model.temporal(clips, lives)     # warm-up
+                before = WA.window_attention.launches
+                ms = cuda_ms(lambda: model.temporal(clips, lives), iters=2,
+                             warmup=0)
+                launches = WA.window_attention.launches - before
+                if route == "kernel":
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        model.temporal(clips, lives)
+                        torch.cuda.synchronize()
+                    for line in prof.key_averages().table(
+                            sort_by="self_device_time_total",
+                            row_limit=8).splitlines():
+                        log(f"  {line}")
+            want = 2 * WIN_BLOCKS if route == "kernel" else 0
+            if launches != want:
+                raise AssertionError(f"trunk ({route}): window_attention "
+                                     f"launched {launches} in 2 trunks, "
+                                     f"want {want}")
+            out[f"{route}_ms"] = ms
+            log(f"window_attention: swin3d_b trunk bf16 on "
+                f"{tuple(clips.shape)} with the {route}: {ms:.2f} ms (CUDA "
+                f"events), window_attention launches {launches // 2} a trunk"
+                f" [{card}]")
+    keep = torch.arange(out["kernel"].shape[1], device="cuda")[None] < \
+        lives[:, None]
+    gap = float((out["kernel"] - out["plain"])[keep].abs().max()
+                / out["plain"][keep].abs().max())
+    log(f"window_attention: the two trunks' live memory steps differ by "
+        f"{gap:.2e} of their max [{card}]")
+    del model, clips
+    torch.cuda.empty_cache()
+    return {"kernel_ms": out["kernel_ms"], "plain_ms": out["plain_ms"],
+            "live_gap": gap}
 
 
 def _resnet_serves(mc) -> bool:
@@ -5304,6 +5538,8 @@ def main() -> None:
     clock.lap("video+serve")
     configs = phase_configs(dev["card"])
     clock.lap("configs")
+    window = phase_window_attention(dev["card"])
+    clock.lap("window_attention")
     dp = phase_dp(dev["card"])
     clock.lap("dp")
     offline = phase_offline(dev["card"], model)
@@ -5456,7 +5692,17 @@ def main() -> None:
          "launches_by_config": {
              name: c["epilogue_launches"]["greedy"]
              for name, c in configs["serving"].items()},
-         **configs["serving"][config_name(CONFIG_CASES[0])]["bn_epilogue"]}]
+         **configs["serving"][config_name(CONFIG_CASES[0])]["bn_epilogue"]},
+        {"name": "window_attention", "route": "cuda",
+         "design": "a block of 5 warps per (window, head): K, V and the bias "
+                   "table's column in shared memory, mma.sync bf16 scores "
+                   "and P.V, an online softmax in exp2, the shift's regions "
+                   "and the padded keys from coordinates, windows of "
+                   "padding alone written as zeros (port-only: the JAX "
+                   "package has no Video Swin encoder)",
+         "source": "mmqg_tpu_torch/csrc/window_attention.cu",
+         "replaces": "none",
+         "launches_a_trunk": WIN_BLOCKS, **window}]
     log("offline: " + json.dumps({
         "stage_ms": offline["stage_ms"], "splits": offline["splits"],
         "train": {k: v for k, v in offline["train"].items()

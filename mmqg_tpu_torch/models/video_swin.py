@@ -30,12 +30,12 @@ One departure, for batches: a clip's frames past its length are padding
 up to its batch's frames bucket, and after the patch embedding they are
 no longer zeros. So every window that holds one of a clip's first
 ``ceil(n / 2)`` temporal tokens masks, as keys, its tokens at or past
-them (``NEG``, finite). A window of padding alone runs unmasked: no live
-token reads its output, which stays finite. A clip's live outputs are
-then the same at any bucket whose temporal size exceeds the window's 8
-steps (over 16 frames), and equal torchvision's on that clip alone when
-``ceil(n / 2)`` is a multiple of 8. The memory's steps past a clip's
-length are zero.
+them (they take no weight). A window of padding alone is written as
+zeros: no live token reads its output. A clip's live outputs are then the
+same at any bucket whose temporal size exceeds the window's 8 steps (over
+16 frames), and equal torchvision's on that clip alone when ``ceil(n /
+2)`` is a multiple of 8. The memory's steps past a clip's length are
+zero.
 
 Leaves keep the repository's layouts: dense ``w (In, Out)``, ``b``; the
 patch embedding ``w (2, 4, 4, 3, C)`` (kt, kh, kw, In, Out); LayerNorm
@@ -47,15 +47,14 @@ refuses ``train=True``.
 Casts follow the repository's policy: GEMM operands in the compute dtype
 with float32 accumulation (cuBLAS; their results, as a conv's, in the
 compute dtype), the residual stream, LayerNorm, GELU's arithmetic and the
-attention's softmax in float32 (``F.scaled_dot_product_attention``
-accumulates in float32). The attention runs in chunks of whole clips'
-windows, each chunk's additive mask (bias, shift mask, padded keys)
-in the compute dtype; on the card PyTorch's fused kernel (cuDNN's) runs
-it. The host reads the clips' lengths once a trunk (``Rows``) to split
-the windows: every window runs with the bias (and the shift's regions)
-alone, a broadcast view; the windows of the temporal rows that hold both
-live and padded tokens run again with their padded keys masked, the one
-mask built per call.
+attention's softmax in float32. The window attention is
+``ops/window_attention.py::window_attention``: on the card one launch a
+block of a hand-written kernel (``csrc/window_attention.cu``) that reads
+the qkv GEMM's output, the bias table and the clips' lengths, builds the
+shift's regions and the padded keys' mask from coordinates and skips the
+windows of padding alone; on the CPU PyTorch's fused attention over
+materialised masks. The host reads the clips' lengths once a trunk
+(``Rows``).
 
 Spans (``utils.profiling.annotate``): ``swin.attention`` around each
 block's window attention, ``swin.mlp`` around its MLP, ``swin.merge``
@@ -63,7 +62,8 @@ around each patch merging. Counter ``windows`` (the benchmark's
 readers): ``trunks``; ``attn_calls`` (24 a ``swin3d_b`` trunk);
 ``windows`` and ``tokens`` computed; ``live_windows``, windows holding a
 token before its clip's temporal length, and ``live_tokens``, such
-tokens.
+tokens; ``skipped``, the windows written as zeros (``windows`` -
+``live_windows``).
 """
 
 from __future__ import annotations
@@ -78,6 +78,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmqg_tpu_torch.models import layers as L
+from mmqg_tpu_torch.ops.window_attention import window_attention
 from mmqg_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
@@ -88,14 +89,13 @@ TABLE = (2 * WINDOW[0] - 1) * (2 * WINDOW[1] - 1) * (2 * WINDOW[2] - 1)
 EPS = 1e-5
 REGION = -100.0     # between regions of a rolled volume (torchvision's)
 NEG = -1e4          # padded keys: exp underflows to 0 beside any live key
-MASK_BYTES = 1 << 30  # a chunk's mask at most this (one clip's at least)
 # the frame statistics swin3d_b's released weights expect: torchvision's
 # Swin3D_B_Weights.KINETICS400_V1 transforms normalise with ImageNet's
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 
 windows = {"trunks": 0, "attn_calls": 0, "windows": 0, "live_windows": 0,
-           "tokens": 0, "live_tokens": 0}
+           "tokens": 0, "live_tokens": 0, "skipped": 0}
 
 
 def temporal_out_len(n_frames):
@@ -185,34 +185,42 @@ def _window_order(size: Tuple[int, ...], win: Tuple[int, ...],
 class Rows:
     """A trunk's clips against the rolled, padded time axis of its
     windows, from their live temporal tokens (read to the host once a
-    trunk): for the unshifted and the shifted blocks, the temporal window
-    rows (``clip * rows + row``) holding both a live token and one at or
-    past its clip's length (``mixed``, on the device, and their count),
-    and the rows holding a live token (``live_rows``)."""
+    trunk), for each temporal shift of its blocks (0, and 4 over more than
+    8 steps): the temporal window rows (``clip * rows + row``) holding
+    both a live token and one at or past its clip's length (``mixed``, on
+    the device, and their count), those holding no live token (``dead``,
+    on the device) and the count of those holding one (``live_rows``).
+    ``live`` is the lengths as int32 on their device."""
 
     def __init__(self, live: Tensor, T: int):
-        self.live, self.T = live, T
+        self.live, self.T = live.to(torch.int32), T
         lens = [int(n) for n in live.tolist()]
         self.tokens = sum(lens)
-        self.mixed, self.n_mixed, self.live_rows = {}, {}, {}
-        flat = []
+        self.mixed, self.n_mixed, self.live_rows, self.dead = {}, {}, {}, {}
+        found = {}
         for shifted in (False, True):
             (win,), (shift,) = window_and_shift((T,), shifted)
             tp = -(-T // win) * win
-            rows, live_rows = [], 0
+            mixed, dead = [], []
             for b, n in enumerate(lens):
                 for r in range(tp // win):
                     k = sum((r * win + j + shift) % tp < n
                             for j in range(win))
-                    live_rows += k > 0
-                    if 0 < k < win:
-                        rows.append(b * (tp // win) + r)
-            self.n_mixed[shifted], self.live_rows[shifted] = (len(rows),
-                                                              live_rows)
-            flat += rows
-        both = torch.tensor(flat, dtype=torch.long).to(live.device)
-        self.mixed[False] = both[:self.n_mixed[False]]
-        self.mixed[True] = both[self.n_mixed[False]:]
+                    if k == 0:
+                        dead.append(b * (tp // win) + r)
+                    elif k < win:
+                        mixed.append(b * (tp // win) + r)
+            found[shift] = (mixed, dead)
+            self.n_mixed[shift] = len(mixed)
+            self.live_rows[shift] = len(lens) * (tp // win) - len(dead)
+        both = torch.tensor([i for m, d in found.values() for i in m + d],
+                            dtype=torch.long).to(live.device)
+        at = 0
+        for shift, (mixed, dead) in found.items():
+            self.mixed[shift] = both[at:at + len(mixed)]
+            at += len(mixed)
+            self.dead[shift] = both[at:at + len(dead)]
+            at += len(dead)
 
     def key_neg(self, rows: Tensor, win: Tuple[int, ...],
                 shift: Tuple[int, ...], dtype: torch.dtype) -> Tensor:
@@ -271,19 +279,14 @@ class Block(nn.Module):
                   ) -> Tensor:
         """The shifted-window attention of ``x`` (B, T, H, W, C), LN1's
         float32 output, with each clip's keys at or past its live
-        temporal tokens (``rows``) masked; (B, T, H, W, C) in ``dtype``.
-
-        Every window runs first with the bias (and the shift's regions)
-        alone: that is its result where all of its keys are live, and a
-        finite one where none is (padding, which no live token reads).
-        The windows of ``rows.mixed`` then run again with their padded
-        keys masked, over the first result."""
+        temporal tokens (``rows``) masked; (B, T, H, W, C) in ``dtype``,
+        zero before ``proj`` in the windows of padding alone."""
         B, T, H, W, C = x.shape
         h = self.heads
         win, shift = window_and_shift((T, H, W), self.shifted)
         padded = tuple(-(-n // w) * w for n, w in zip((T, H, W), win))
-        nt, nh, nw = (n // w for n, w in zip(padded, win))
-        hw = nh * nw
+        grid = tuple(n // w for n, w in zip(padded, win))
+        nt, hw = grid[0], grid[1] * grid[2]
         N = win[0] * win[1] * win[2]
         into, back = _window_order((T, H, W), win, shift, x.device)
         src = torch.empty((B, T * H * W + 1, C), dtype=dtype, device=x.device)
@@ -291,57 +294,15 @@ class Block(nn.Module):
         src[:, :-1] = x.view(B, -1, C)
         x = src.index_select(1, into).view(B * nt * hw, N, C)
         del src
-        qkv = self.qkv(x, dtype).view(-1, N, 3, h, C // h).permute(
-            2, 0, 3, 1, 4)
-
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        scale = (C // h) ** -0.5
-
-        # the mask: bias (heads, N, N) [+ the shift's regions], a view for
-        # every window of the chunks, and for the mixed rows + their clip's
-        # padded keys
-        idx = relative_position_index(x.device)[:N, :N].reshape(-1)
-        bias = self.rel_bias.t().to(dtype)[:, idx].view(h, N, N)
-        per_window = h * N * N * bias.element_size()
-        # clips a chunk
-        step = min(B, max(1, MASK_BYTES // (nt * hw * per_window)))
-        if any(shift):
-            region = _region_mask(padded, win, shift, dtype, x.device)
-            chunk = torch.add(bias.expand(step, nt * hw, h, N, N),
-                              region[None, :, None]).view(-1, h, N, N)
-            base = chunk[:nt * hw].view(nt, hw, h, N, N)
-        else:
-            chunk = bias.expand(step * nt * hw, h, N, N)
-            base = bias.expand(nt, hw, h, N, N)
-        shifted = self.shifted
+        qkv = self.qkv(x, dtype).view(-1, N, 3, h, C // h)
+        live_rows = rows.live_rows[shift[0]]
         windows["attn_calls"] += 1
         windows["windows"] += B * nt * hw
         windows["tokens"] += B * nt * hw * N
-        windows["live_windows"] += rows.live_rows[shifted] * hw
+        windows["live_windows"] += live_rows * hw
         windows["live_tokens"] += rows.tokens * padded[1] * padded[2]
-
-        out = torch.empty((B * nt * hw, N, C), dtype=dtype, device=x.device)
-        for b0 in range(0, B, step):
-            w0, w1 = b0 * nt * hw, min(B, b0 + step) * nt * hw
-            o = F.scaled_dot_product_attention(
-                q[w0:w1], k[w0:w1], v[w0:w1], attn_mask=chunk[:w1 - w0],
-                scale=scale)
-            out[w0:w1].view(w1 - w0, N, h, C // h).copy_(o.transpose(1, 2))
-        mixed, n_mixed = rows.mixed[shifted], rows.n_mixed[shifted]
-        per_row = max(1, MASK_BYTES // (hw * per_window))
-        for r0 in range(0, n_mixed, per_row):
-            r = mixed[r0:r0 + per_row]
-            sel = (r[:, None] * hw + torch.arange(hw, device=x.device)
-                   ).reshape(-1)
-            rb = (base[r % nt] if any(shift) else
-                  base[:1].expand(min(per_row, n_mixed - r0), -1, -1, -1,
-                                  -1))
-            mask = torch.add(rb, rows.key_neg(
-                r, win, shift, dtype)[:, None, None, None, :])
-            o = F.scaled_dot_product_attention(
-                q[sel], k[sel], v[sel], attn_mask=mask.view(-1, h, N, N),
-                scale=scale)
-            out.index_copy_(0, sel, o.transpose(1, 2).reshape(-1, N, C))
+        windows["skipped"] += (B * nt - live_rows) * hw
+        out = window_attention(qkv, self.rel_bias, rows, grid, win, shift)
         y = self.proj(out, dtype).view(B, -1, C)
         return y.index_select(1, back).view(B, T, H, W, C)
 

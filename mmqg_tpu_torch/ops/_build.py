@@ -46,6 +46,7 @@ SIGNATURES = {
     "mmqg_vggish_conv_s8": [_P] * 8 + [_I] * 7 + [_P],
     "mmqg_quantize_s8": [_P] * 4 + [_I] * 4 + [_P],
     "mmqg_bn_epilogue": [_P] * 8 + [_I] * 5 + [_P],
+    "mmqg_window_attention": [_P] * 4 + [_I] * 12 + [_P],
 }
 
 

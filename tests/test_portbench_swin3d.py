@@ -24,7 +24,7 @@ CELL = "trimodal_attn_swin3d_b.serve_bulk"
 READERS = ("swin3d_mfu.serve", "swin3d_attn_roofline.serve",
            "swin3d_padded_tokens.serve")
 COUNTER = ("trunks", "attn_calls", "windows", "live_windows", "tokens",
-           "live_tokens")
+           "live_tokens", "skipped")
 
 
 def _zeroed(monkeypatch):
@@ -112,6 +112,7 @@ def _hand_counts():
         out["tokens"] += depth * 2 * 2 * sp * vol
         out["live_windows"] += depth // 2 * (live_u + live_s) * sp
         out["live_tokens"] += depth * (10 + 5) * hw
+    out["skipped"] = out["windows"] - out["live_windows"]
     return out
 
 

@@ -187,6 +187,29 @@ def test_swin_trunk_check_wants_one_trunk_of_24_attentions():
             chip_smoke.check_swin_trunks("rehearsal", swin, before)
 
 
+def test_window_attention_check_wants_24_launches_a_swin_generate():
+    """The configs phase's kernel check: 24 window attention launches a
+    generate() of the swin3d configuration (one a block), none in any
+    other."""
+    from unittest import mock
+
+    from mmqg_tpu_torch.ops import window_attention as WA
+
+    swin = ModelConfig(n_vocab=50, video_encoder="swin3d",
+                       video_hidden_dim=1024, frame_size=224)
+    with mock.patch.object(WA.window_attention, "launches", 7):
+        chip_smoke.check_window_attention_launches(
+            "rehearsal", ModelConfig(n_vocab=50), 7)
+        with pytest.raises(AssertionError, match="window_attention"):
+            chip_smoke.check_window_attention_launches("rehearsal", swin, 7)
+        WA.window_attention.launches += 24
+        chip_smoke.check_window_attention_launches("rehearsal", swin, 7)
+        for mc in (ModelConfig(n_vocab=50), swin._replace(mode="text")):
+            with pytest.raises(AssertionError, match="window_attention"):
+                chip_smoke.check_window_attention_launches("rehearsal", mc,
+                                                           7)
+
+
 def _tiny_train_model():
     mc = ModelConfig(n_vocab=50, word_emb_dim=8, hidden_dim=16, text_layers=2,
                      dec_layers=2, video_hidden_dim=16, audio_emb_dim=8,
